@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. print the card's name and power limit; build both CUDA kernels (one
-     nvcc per source, started together);
+  1. print the card's name and power limit; build the CUDA kernels (one
+     nvcc per source, started together: the fused decode, and the sample
+     loop in its bf16, int8 and int8_mxu modes);
   2. fused AR decode kernel against its plain version at flagship width on
      the 14k-step export (r = 10): dropout 0, dropout 0.5 with shared
      uniforms, and three cases that must stop early, on copies of the
@@ -15,12 +16,21 @@ Phases (any failure exits non-zero and prints no result line):
   3. WaveRNN sample-loop kernel against its plain version on conditioning
      from the 26k-step export, B in {1, 5, 11}, T >= 2000, with shared
      uniforms; a chunked run with state carry against a one-shot run;
+  3b. the int8 and int8_mxu sample-loop kernels against their plain versions
+     on seeded weights at flagship width, MOL and RAW 512, B in {1, 5, 11},
+     T >= 2000, shared uniforms; chunked against one-shot in both modes;
   4. the main path text + reference wav -> wav through TTSSynthesizer and
      VocoderSynthesizer, with both kernels' launch counts read around it;
   5. times (CUDA events), bounds, the plain versions' times, decode ms per
      step and the end-to-end real-time factor, each beside the card; the
      sample loop is also held against its plain version at the main path's
-     shapes there, on the run that times the plain version.
+     shapes there, on the run that times the plain version;
+  6. the serving path: TTSSynthesizer.predict_many on 8 texts, then
+     VocoderSynthesizer.generate_many once per weight mode (bf16, int8,
+     int8_mxu), each kernel's launches read around its call; times, the
+     batch real-time factor, and each int8 kernel alone at the serving
+     shapes (and the sample loop at the SM count of rows, to show the
+     second wave), held against its plain version there.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -37,12 +47,22 @@ VOC_W = ROOT / "artifacts/soak/voc_gta26k_params_fp16.npz"
 CONFIG = ROOT / "configs/default"
 SENTENCE = ("Scientists at the CERN laboratory say they have discovered "
             "a new particle.")
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate, and the bf16 rate,
-# the type of both functions' products (bf16 weights, and activations cast
-# to bf16 before each product in the TPU kernels), whatever cores the port
-# computes them on.
+SERVING_TEXTS = (
+    SENTENCE, "Hello there.", "Please close the door when you leave.",
+    "The quick brown fox jumps over the lazy dog.",
+    "Is this really the best you can do?",
+    "Turn left at the next corner, then keep going straight until you "
+    "reach the old stone bridge by the river.",
+    "Good morning.",
+    "We will meet again at seven tomorrow evening, if the weather allows.")
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM rate; the bf16 rate, the
+# type of the decode's and of the bf16 and int8 sample loops' products (bf16
+# weights, or int8 weights dequantized to bf16, and activations cast to bf16
+# before each product in the TPU kernels), whatever cores the port computes
+# them on; the int8 rate, the type of the int8_mxu products.
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 DECODE_TOL = 5e-3          # max |mel| difference, kernel vs plain
 STEP_TOL = 1e-3            # per-step sample difference, kernel vs plain
 STEP_AGREE = 0.999         # share of steps within STEP_TOL
@@ -76,9 +96,27 @@ def cuda_ms(fn, reps, warm=True):
     return a.elapsed_time(b) / reps, out
 
 
-def bound(n_bytes, n_ops):
-    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_BF16 * 1e3
+def bound(n_bytes, n_ops, peak=PEAK_BF16):
+    t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def loop_bound(w, weight_dtype, cond, noise):
+    """The sample loop's bound on these inputs: the weights (their stored
+    width), the conditioning at the function's bf16 width and the uniforms
+    read once, one float32 sample per step and row written; a multiply-add
+    per weight, step and row, at the rate of the mode's product type."""
+    T, B, _ = cond.shape
+    n_bytes = w.n_bytes() + cond.numel() * 2 + noise.numel() * 4 + T * B * 4
+    n_ops = 2 * sum(x.numel() for x in w.tensors() if x.dim() == 2) * T * B
+    return bound(n_bytes, n_ops,
+                 PEAK_INT8 if weight_dtype == "int8_mxu" else PEAK_BF16)
+
+
+def n_folds(total_len, target, overlap):
+    """Fold rows of a waveform of total_len samples (fold_with_overlap)."""
+    n = (total_len - overlap) // (target + overlap)
+    return n + (total_len - (n * (overlap + target) + overlap) != 0)
 
 
 def ref_wav(seed=0, seconds=2.0, sr=16000):
@@ -97,9 +135,11 @@ def ref_wav(seed=0, seconds=2.0, sr=16000):
 def random_sample_weights(like, n_out, dev, seed=0):
     """Sample-path weights of the flagship widths drawn from a seed
     (normal, 1/sqrt(fan-in)), for a kernel check whose samples spread over
-    (-1, 1) and, in RAW mode, over 512 classes."""
+    (-1, 1) and, in RAW mode, over 512 classes: (bf16 SampleLoopWeights,
+    Int8SampleLoopWeights quantized from the same float32 draw)."""
     import torch
-    from etts_torch.ops.kernels.wavernn_cell import SampleLoopWeights
+    from etts_torch.ops.kernels.wavernn_cell import (Int8SampleLoopWeights,
+                                                     SampleLoopWeights)
     g = torch.Generator().manual_seed(seed)
     d, fc, feat, adim = like.d, like.fc, like.feat, like.adim
 
@@ -113,12 +153,15 @@ def random_sample_weights(like, n_out, dev, seed=0):
     bf3 = b(n_out)
     if n_out == 30:
         bf3[20:] -= 3.0
-    return SampleLoopWeights.from_flax_layout(
-        w(1 + feat + adim, d), b(d), w(d, 3 * d), w(d, 3 * d), b(3 * d),
-        b(3 * d), w(d + adim, 3 * d), w(d, 3 * d), b(3 * d), b(3 * d),
-        w(d + adim, fc), b(fc), w(fc + adim, fc), b(fc),
-        0.1 * w(fc, n_out), bf3, feat=feat, dtype=torch.bfloat16,
-        device=dev)
+    args = (w(1 + feat + adim, d), b(d), w(d, 3 * d), w(d, 3 * d), b(3 * d),
+            b(3 * d), w(d + adim, 3 * d), w(d, 3 * d), b(3 * d), b(3 * d),
+            w(d + adim, fc), b(fc), w(fc + adim, fc), b(fc),
+            0.1 * w(fc, n_out), bf3)
+    return (SampleLoopWeights.from_flax_layout(*args, feat=feat,
+                                               dtype=torch.bfloat16,
+                                               device=dev),
+            Int8SampleLoopWeights.from_flax_layout(*args, feat=feat,
+                                                   device=dev))
 
 
 def attention_at_end(w):
@@ -199,7 +242,7 @@ def main() -> int:
     from etts_torch.ops.kernels import _build
     t0 = time.perf_counter()
     _build.build("decoder_step", "wavernn_cell")
-    say(cl, f"built both kernels in {time.perf_counter() - t0:.1f} s")
+    say(cl, f"built the kernels in {time.perf_counter() - t0:.1f} s")
     for name in ("decoder_step", "wavernn_cell"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -296,11 +339,12 @@ def main() -> int:
     T = cond_all.shape[0]
     ww = voc.weights
     voc_err = 0.0
-    rand_mol = random_sample_weights(ww, 30, dev)
+    rand_mol, rand_mol8 = random_sample_weights(ww, 30, dev)
+    rand_raw, rand_raw8 = random_sample_weights(ww, 512, dev)
     weight_sets = [("26k export, MOL", ww, "MOL", 30),
                    ("seeded random weights, MOL", rand_mol, "MOL", 30),
-                   ("seeded random weights, RAW 512 classes",
-                    random_sample_weights(ww, 512, dev), "RAW", 512)]
+                   ("seeded random weights, RAW 512 classes", rand_raw, "RAW",
+                    512)]
     for label, wts, mode, n_cls in weight_sets:
         for B in (1, 5, 11):
             cond = cond_all[:, :B].contiguous()
@@ -342,6 +386,56 @@ def main() -> int:
             f"(tol 0)")
     if chunk_err != 0.0 or state_err != 0.0:
         failures.append("wavernn_sample_loop chunked state carry")
+
+    # ---- 3b. int8 sample-loop kernels vs plain ----
+    # the plain version of each mode repeats the TPU kernel's rounding (bf16
+    # conditioning; bf16 activations, or activations quantized per row with
+    # an exact integer product), fed the kernel's samples
+    q_err = {"int8": 0.0, "int8_mxu": 0.0}
+    for label, wb, w8, mode, n_cls in (
+            ("MOL", rand_mol, rand_mol8, "MOL", 30),
+            ("RAW 512 classes", rand_raw, rand_raw8, "RAW", 512)):
+        for B in (1, 5, 11):
+            cond = cond_all[:, :B].contiguous()
+            nd = wcell.n_draw(mode, n_cls, wb.n_out)
+            g = torch.Generator(dev).manual_seed(100 + B)
+            u = torch.rand(T, B, nd, device=dev, generator=g)
+            kw = dict(mode=mode, n_classes=n_cls, noise=u)
+            b_out, _ = wcell.wavernn_sample_loop(cond, wb, **kw)
+            for wdt in q_err:
+                k_out, _ = wcell.wavernn_sample_loop(cond, w8, weight_dtype=wdt,
+                                                     **kw)
+                t_out, _ = wcell.wavernn_sample_loop_plain(
+                    cond, w8, teacher=k_out, weight_dtype=wdt, **kw)
+                torch.cuda.synchronize()
+                diff = (k_out - t_out).abs()
+                agree = float((diff <= STEP_TOL).float().mean())
+                q_err[wdt] = max(q_err[wdt], float(diff.max()))
+                say(cl, f"wavernn_sample_loop {wdt} vs plain (seeded random "
+                        f"weights, {label}), B={B} T={T}: per-step (same "
+                        f"history) max |d| {float(diff.max()):.3e}, "
+                        f"{agree:.6f} of steps within {STEP_TOL}; mean "
+                        f"|{wdt} - bf16 kernel| {float((k_out - b_out).abs().mean()):.4f} "
+                        f"(same uniforms; etts' gate on its tiny RAW test "
+                        f"is < 0.1); {float((k_out.abs() < 1).float().mean()):.4f} "
+                        f"inside (-1, 1)")
+                if agree < STEP_AGREE or not bool(torch.isfinite(k_out).all()):
+                    failures.append(f"wavernn_sample_loop {wdt} vs plain "
+                                    f"({label}, B={B})")
+    cond = cond_all[:, :5].contiguous()
+    for wdt in q_err:
+        kw = dict(seed=7, weight_dtype=wdt)
+        one, st1 = wcell.wavernn_sample_loop(cond, rand_mol8, **kw)
+        a, st = wcell.wavernn_sample_loop(cond[:1000], rand_mol8, **kw)
+        b, st2 = wcell.wavernn_sample_loop(cond[1000:], rand_mol8, state=st,
+                                           **kw)
+        chunk_err = float((torch.cat([a, b]) - one).abs().max())
+        state_err = float((st1["h2"] - st2["h2"]).abs().max())
+        say(cl, f"wavernn_sample_loop {wdt} chunked (1000 + {T - 1000}) vs "
+                f"one-shot (seeded MOL): max |d| {chunk_err:.3e}, final h2 "
+                f"max |d| {state_err:.3e} (tol 0)")
+        if chunk_err != 0.0 or state_err != 0.0:
+            failures.append(f"wavernn_sample_loop {wdt} chunked state carry")
 
     # ---- 4. the main path ----
     dstep.fused_decode.launches = 0
@@ -444,6 +538,108 @@ def main() -> int:
             f"{launches['wavernn_sample_loop']}")
     say(cl, f"end to end: {e2e:.3f} s for {audio_s:.3f} s of audio, "
             f"RTF {e2e / audio_s:.4f}")
+
+    # ---- 6. the serving path ----
+    sr, hop = tts.config["sampling_rate"], tts.config["hop_length"]
+    for k in ("launches", "launches_int8", "launches_int8_mxu"):
+        setattr(wcell.wavernn_sample_loop, k, 0)
+    dstep.fused_decode.launches = 0
+
+    def loop_counts():
+        return {k: getattr(wcell.wavernn_sample_loop, k)
+                for k in ("launches", "launches_int8", "launches_int8_mxu")}
+
+    batch_ms, mels = cuda_ms(lambda: tts.predict_many(
+        SERVING_TEXTS, ref_mel, spk, max_length=max_length, seed=0), 1,
+        warm=False)
+    dec_s = batch_ms / 1e3
+    if dstep.fused_decode.launches != 0:
+        raise RuntimeError("a batch of texts went through the fused decode")
+    want_rows = sum(n_folds(m.shape[0] * hop, target, overlap) for m in mels)
+    say(cl, f"serving: {len(SERVING_TEXTS)} texts of "
+            f"{[len(tts.encode_text(x)) for x in SERVING_TEXTS]} tokens -> "
+            f"{[m.shape[0] for m in mels]} frames in one decode, "
+            f"{dec_s:.3f} s; {want_rows} fold rows")
+    voc_mels = [(m + 4.0) / 8.0 for m in mels]
+    serve_s, serve_launches = {}, {}
+    for flag, counter in ((False, "launches"), (True, "launches_int8"),
+                          ("mxu", "launches_int8_mxu")):
+        before = loop_counts()
+        ms, wavs = cuda_ms(lambda: voc.generate_many(
+            voc_mels, seed=0, int8_weights=flag), 1, warm=False)
+        serve_s[flag] = ms / 1e3
+        after = loop_counts()
+        ran = {k: after[k] - before[k] for k in after}
+        serve_launches[counter] = ran[counter]
+        if ran != {k: int(k == counter) for k in ran}:
+            raise RuntimeError(f"generate_many(int8_weights={flag!r}) "
+                               f"launched {ran}")
+        for wv, m in zip(wavs, mels):
+            if wv.shape[0] != (m.shape[0] - 1) * hop:
+                raise RuntimeError("a serving wav is not (t - 1) * hop long")
+            if not (np.isfinite(wv).all() and np.abs(wv).max() <= 1.0):
+                raise RuntimeError("a serving wav is not finite or outside "
+                                   "[-1, 1]")
+        serve_audio = sum(wv.shape[0] for wv in wavs) / sr
+        say(cl, f"serving, int8_weights={flag!r}: generate_many "
+                f"{serve_s[flag]:.3f} s for {serve_audio:.3f} s of audio in "
+                f"{len(wavs)} wavs; batch RTF (decode + vocoder device "
+                f"seconds per second of delivered audio) "
+                f"{(dec_s + serve_s[flag]) / serve_audio:.4f}; launches "
+                f"{ran}")
+
+    # each sample-loop kernel alone at the serving shapes on the seeded MOL
+    # weights and shared uniforms; each int8 kernel's plain version timed
+    # once on the same inputs, fed the kernel's samples
+    with torch.no_grad():
+        ups, auxs = [], []
+        for m in voc_mels:
+            vm = _clamp_mels(torch.from_numpy(m).to(dev))
+            vm = F.pad(vm[None], (0, 0, voc.model.pad, voc.model.pad))
+            up, aux = voc.model.upsample(vm)
+            ups.append(fold_with_overlap(up, target, overlap))
+            auxs.append(fold_with_overlap(aux, target, overlap))
+        cond = _conditioning_streams(torch.cat(ups), torch.cat(auxs))
+    T, B, _ = cond.shape
+    if B != want_rows:
+        raise RuntimeError(f"{B} fold rows, want {want_rows}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    u = torch.rand(T, B, wcell.n_draw("MOL", 30, 30), device=dev,
+                   generator=torch.Generator(dev).manual_seed(3))
+    cond_sm, u_sm = cond[:, :n_sm].contiguous(), u[:, :n_sm].contiguous()
+    serve = {}
+    for wdt, wts in ((None, rand_mol), ("int8", rand_mol8),
+                     ("int8_mxu", rand_mol8)):
+        kw = dict(noise=u, weight_dtype=wdt)
+        ms_all, (k_out, _) = cuda_ms(
+            lambda: wcell.wavernn_sample_loop(cond, wts, **kw), 2,
+            warm=False)
+        bnd, by = loop_bound(wts, wdt, cond, u)
+        name = "bf16" if wdt is None else wdt
+        serve[name] = {"ms": ms_all, "bound": bnd, "by": by}
+        line = (f"wavernn_sample_loop {name} at the serving shapes: "
+                f"{ms_all:.2f} ms for T={T} x B={B} ({ms_all / T * 1e3:.2f} "
+                f"us/step); bound {bnd:.4f} ms by {by}")
+        if B > n_sm:            # one block per row and SM: a second wave
+            ms_sm, _ = cuda_ms(lambda: wcell.wavernn_sample_loop(
+                cond_sm, wts, noise=u_sm, weight_dtype=wdt), 1, warm=False)
+            line += (f"; {ms_sm:.2f} ms for B={n_sm}, so the second wave "
+                     f"of {B - n_sm} rows takes {ms_all - ms_sm:.2f} ms")
+        if wdt is not None:
+            plain_ms, (t_out, _) = cuda_ms(
+                lambda: wcell.wavernn_sample_loop_plain(
+                    cond, wts, teacher=k_out, **kw), 1, warm=False)
+            diff = (k_out - t_out).abs()
+            agree = float((diff <= STEP_TOL).float().mean())
+            q_err[wdt] = max(q_err[wdt], float(diff.max()))
+            serve[name]["plain"] = plain_ms
+            line += (f"; plain {plain_ms:.1f} ms, per-step (same history) "
+                     f"max |d| {float(diff.max()):.3e}, {agree:.6f} of steps "
+                     f"within {STEP_TOL}")
+            if agree < STEP_AGREE or not bool(torch.isfinite(k_out).all()):
+                failures.append(f"wavernn_sample_loop {wdt} vs plain "
+                                "(serving shapes)")
+        say(cl, line)
     kernels = [
         {"name": "fused_decode", "route": "cuda",
          "source": "etts_torch/csrc/decoder_step.cu",
@@ -457,7 +653,15 @@ def main() -> int:
          "launches": launches["wavernn_sample_loop"], "max_abs_err": voc_err,
          "ms": voc_ms, "plain_ms": voc_plain_ms, "bound_ms": voc_bound,
          "bound_by": voc_by, "library_ms": None},
-    ]
+    ] + [
+        {"name": f"wavernn_sample_loop_{wdt}", "route": "cuda",
+         "source": "etts_torch/csrc/wavernn_cell.cu",
+         "replaces": "etts/ops/pallas/wavernn_cell.py:351",
+         "launches": serve_launches[f"launches_{wdt}"],
+         "max_abs_err": q_err[wdt], "ms": serve[wdt]["ms"],
+         "plain_ms": serve[wdt]["plain"], "bound_ms": serve[wdt]["bound"],
+         "bound_by": serve[wdt]["by"], "library_ms": None}
+        for wdt in ("int8", "int8_mxu")]
     for kern in kernels:
         if not all(math.isfinite(kern[k]) for k in
                    ("ms", "plain_ms", "bound_ms", "max_abs_err")):

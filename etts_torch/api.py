@@ -2,9 +2,13 @@
 (text + reference audio + speaker -> mel) and ``VocoderSynthesizer``
 (mel -> waveform), both loading the flat npz weight exports.
 
-On the card both run their CUDA kernels: the fused decode when the model's
-geometry allows it (``can_fuse``), and the WaveRNN sample loop. A failing
-kernel raises; nothing falls back to another path.
+On the card both run their CUDA kernels: the fused decode for one text
+when the model's geometry allows it (``can_fuse``), and the WaveRNN sample
+loop in the mode that ``int8_weights`` picks (bf16, "int8" or "int8_mxu").
+A batch of texts (``predict_many``) decodes through
+``autoregressive_predict`` in plain PyTorch on the card, as the JAX package
+decodes it outside any kernel. A failing kernel raises; nothing falls back
+to another path.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 
 from .convert import load_into
 from .models.autoregressive import autoregressive_predict
-from .models.wavernn import generate
+from .models.wavernn import generate, generate_batch
 from .ops.audio import AudioProcessor
 from .ops.kernels.decoder_step import can_fuse, decode_weights, fused_decode
 from .utils.config import (build_tts, build_vocoder, load_config,
@@ -59,18 +63,10 @@ class TTSSynthesizer:
         """Reference wav -> normalized mel (t, n_mels)."""
         return self.audio.mel_spectrogram(wav).T.numpy()
 
-    @torch.no_grad()
-    def predict(self, text, ref_mel=None, spk_embed=None, max_length=1000,
-                seed: int = 0, attn_stop_patience=None,
-                max_frames_per_token=None) -> dict:
-        """-> {'mel': (t, n_mels) in [-4, 4], 'steps': decode steps run}.
-        Guards left at None take the config's values; 0 turns one off."""
-        asp = (self.attn_stop_patience if attn_stop_patience is None
-               else (attn_stop_patience or None))
-        mft = (self.max_frames_per_token if max_frames_per_token is None
-               else (max_frames_per_token or None))
+    def _conditioning(self, ref_mel, spk_embed, n: int):
+        """The encoder's reference and speaker inputs for n rows (the one
+        reference and speaker tiled), or None where the system takes none."""
         m = self.model
-        inp = torch.from_numpy(self.encode_text(text))[None].to(self.device)
         ref = spk = None
         if m.has_style:
             if ref_mel is None:
@@ -79,31 +75,81 @@ class TTSSynthesizer:
                                  "(e.g. mel_from_wav(wav))")
             ref = m.encode_ref(torch.as_tensor(
                 np.asarray(ref_mel, np.float32), device=self.device), self.r)
+            ref = ref.repeat(n, 1, 1)
         if m.has_speaker:
             if spk_embed is None:
                 raise ValueError(f"system_type={m.system_type!r} needs a "
                                  "speaker embedding: pass spk_embed=")
             spk = torch.as_tensor(np.asarray(spk_embed, np.float32),
                                   device=self.device).reshape(1, 1, -1)
+            spk = spk.repeat(n, 1, 1)
+        return ref, spk
+
+    @torch.no_grad()
+    def _decode(self, texts, ref_mel, spk_embed, max_length, seed,
+                attn_stop_patience, max_frames_per_token):
+        """Decode texts, their ids zero-padded to one length, in one batch:
+        the fused kernel for one text where ``can_fuse`` allows it (as
+        `etts/api.py:134` does), else ``autoregressive_predict`` with
+        per-row stop tracking. Returns (list of mels (t_i, n_mels), steps).
+        Guards left at None take the config's values; 0 turns one off."""
+        asp = (self.attn_stop_patience if attn_stop_patience is None
+               else (attn_stop_patience or None))
+        mft = (self.max_frames_per_token if max_frames_per_token is None
+               else (max_frames_per_token or None))
+        m = self.model
+        seqs = [self.encode_text(t) for t in texts]
+        inp = np.zeros((len(seqs), max(len(q) for q in seqs)), np.int64)
+        for i, q in enumerate(seqs):
+            inp[i, :len(q)] = q
+        inp = torch.from_numpy(inp).to(self.device)
+        ref, spk = self._conditioning(ref_mel, spk_embed, len(seqs))
         max_steps = int(max_length) // self.r + 1
-        if can_fuse(m):
+        if len(seqs) == 1 and can_fuse(m):
             enc, _ = m.encode(inp, ref, spk)
             w = decode_weights(m, enc, self.r, _weight_dtype(self.device))
             mel, length, steps = fused_decode(
                 w, max_steps=max_steps, prenet_dropout=self.prenet_dropout,
                 seed=seed, attn_stop_patience=asp, max_frames_per_token=mft)
-            return {"mel": mel[:length].cpu().numpy(), "steps": steps}
+            return [mel[:length].cpu().numpy()], steps
         gen = torch.Generator(self.device).manual_seed(seed)
         out = autoregressive_predict(
             m, inp, ref, spk, r=self.r, max_length=max_length,
             prenet_dropout=self.prenet_dropout, attn_stop_patience=asp,
             max_frames_per_token=mft, generator=gen)
-        return {"mel": out["mel"][0, :out["mel_length"]].cpu().numpy(),
-                "steps": out["steps"]}
+        mel = out["mel"].cpu().numpy()
+        lengths = out["mel_lengths"].tolist()
+        return [mel[i, :n] for i, n in enumerate(lengths)], out["steps"]
+
+    def predict(self, text, ref_mel=None, spk_embed=None, max_length=1000,
+                seed: int = 0, attn_stop_patience=None,
+                max_frames_per_token=None) -> dict:
+        """-> {'mel': (t, n_mels) in [-4, 4], 'steps': decode steps run}.
+        Guards left at None take the config's values; 0 turns one off."""
+        mels, steps = self._decode([text], ref_mel, spk_embed, max_length,
+                                   seed, attn_stop_patience,
+                                   max_frames_per_token)
+        return {"mel": mels[0], "steps": steps}
+
+    def predict_many(self, texts, ref_mel=None, spk_embed=None,
+                     max_length=1000, seed: int = 0, attn_stop_patience=None,
+                     max_frames_per_token=None) -> list:
+        """Several texts in one decode (the serving path,
+        `etts/api.py:193-217`): ids zero-padded to a common length, the
+        reference encoded once and tiled with the speaker, one decode over
+        the batch with per-row stop tracking. Returns a list of mels
+        (t_i, n_mels) in [-4, 4]."""
+        return self._decode(list(texts), ref_mel, spk_embed, max_length,
+                            seed, attn_stop_patience, max_frames_per_token)[0]
 
 
 class VocoderSynthesizer:
-    """Batch-folded WaveRNN vocoder (reference `synthesizer_wavernn.py`)."""
+    """Batch-folded WaveRNN vocoder (reference `synthesizer_wavernn.py`).
+
+    ``int8_weights`` (per call, else the config key ``voc_int8_weights``):
+    True runs the "int8" sample loop, "mxu" the "int8_mxu" one, falsy the
+    bf16 one. The int8 weights are quantized from the float32 parameters at
+    their first use and kept; both int8 modes share them."""
 
     def __init__(self, config_dir, weights_npz, device="cuda"):
         self.device = torch.device(device)
@@ -111,20 +157,52 @@ class VocoderSynthesizer:
         self.model = load_into(build_vocoder(self.config),
                                weights_npz).to(self.device)
         self.weights = self.model.sample_weights(_weight_dtype(self.device))
+        self._int8_weights = None
+
+    def _int8(self, override):
+        """True -> int8 dequant path; "mxu" -> int8 x int8 products
+        (``models.wavernn._int8_dtype``); falsy -> bf16
+        (`etts/api.py:348-353`)."""
+        v = (override if override is not None
+             else self.config.get("voc_int8_weights", False))
+        return v if v == "mxu" else bool(v)
+
+    def _loop_args(self, int8_weights) -> dict:
+        flag = self._int8(int8_weights)
+        if not flag:
+            return {"int8_weights": False, "weights": self.weights}
+        if self._int8_weights is None:
+            self._int8_weights = self.model.int8_sample_weights()
+        return {"int8_weights": flag, "weights": self._int8_weights}
+
+    def _pick(self, v, key, default):
+        return self.config.get(key, default) if v is None else v
 
     @torch.no_grad()
     def generate(self, mel, batched=None, target=None, overlap=None,
-                 mu_law=None, seed: int = 0) -> np.ndarray:
+                 mu_law=None, seed: int = 0, int8_weights=None) -> np.ndarray:
         """mel (t, n_mels) in the vocoder's [0, 1] convention -> waveform of
         (t - 1) * hop samples."""
-        c = self.config
-        pick = lambda v, key, default: c.get(key, default) if v is None else v
         wav = generate(
             self.model, torch.as_tensor(np.asarray(mel, np.float32),
                                         device=self.device),
-            batched=pick(batched, "voc_gen_batched", True),
-            target=pick(target, "voc_target", 11000),
-            overlap=pick(overlap, "voc_overlap", 550),
-            mu_law=pick(mu_law, "mu_law", True), seed=seed,
-            weights=self.weights)
+            batched=self._pick(batched, "voc_gen_batched", True),
+            target=self._pick(target, "voc_target", 11000),
+            overlap=self._pick(overlap, "voc_overlap", 550),
+            mu_law=self._pick(mu_law, "mu_law", True), seed=seed,
+            **self._loop_args(int8_weights))
         return wav.cpu().numpy()
+
+    @torch.no_grad()
+    def generate_many(self, mels, target=None, overlap=None, mu_law=None,
+                      seed: int = 0, int8_weights=None) -> list:
+        """Vocode a list of mels in one sample-loop launch (serving
+        throughput: all utterances' fold rows share the loop)."""
+        wavs = generate_batch(
+            self.model, [torch.as_tensor(np.asarray(m, np.float32),
+                                         device=self.device) for m in mels],
+            target=self._pick(target, "voc_target", 11000),
+            overlap=self._pick(overlap, "voc_overlap", 550),
+            mu_law=self._pick(mu_law, "mu_law", True), seed=seed,
+            **self._loop_args(int8_weights))
+        return [w.cpu().numpy() for w in wavs]

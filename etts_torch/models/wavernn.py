@@ -15,7 +15,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.gru import gru_scan
-from ..ops.kernels.wavernn_cell import SampleLoopWeights, wavernn_sample_loop
+from ..ops.kernels.wavernn_cell import (Int8SampleLoopWeights,
+                                        SampleLoopWeights,
+                                        wavernn_sample_loop)
 from ..ops.normalizers import mu_law_decode
 
 BN_EPS = 1e-5          # flax BatchNorm default
@@ -136,18 +138,28 @@ class WaveRNN(nn.Module):
         h = torch.relu(self.fc2(torch.cat([h, a4], -1)))
         return self.fc3(h)
 
+    def _flax_layout(self):
+        """The sample-path parameters as (in, out) float32 matrices and
+        vectors, in the order of ``*SampleLoopWeights.from_flax_layout``."""
+        return [x.detach().float() for x in (
+            self.I.weight.T, self.I.bias, self.rnn1_wi, self.rnn1_wh,
+            self.rnn1_bi, self.rnn1_bh, self.rnn2_wi, self.rnn2_wh,
+            self.rnn2_bi, self.rnn2_bh, self.fc1.weight.T, self.fc1.bias,
+            self.fc2.weight.T, self.fc2.bias, self.fc3.weight.T,
+            self.fc3.bias)]
+
     def sample_weights(self, dtype=torch.bfloat16) -> SampleLoopWeights:
-        """The sample-path weights in the kernel's layout."""
+        """The sample-path weights in the bf16 (or float32) kernel's layout."""
         return SampleLoopWeights.from_flax_layout(
-            self.I.weight.detach().T, self.I.bias.detach(),
-            self.rnn1_wi.detach(), self.rnn1_wh.detach(),
-            self.rnn1_bi.detach(), self.rnn1_bh.detach(),
-            self.rnn2_wi.detach(), self.rnn2_wh.detach(),
-            self.rnn2_bi.detach(), self.rnn2_bh.detach(),
-            self.fc1.weight.detach().T, self.fc1.bias.detach(),
-            self.fc2.weight.detach().T, self.fc2.bias.detach(),
-            self.fc3.weight.detach().T, self.fc3.bias.detach(),
-            feat=self.feat_dims, dtype=dtype, device=self.I.weight.device)
+            *self._flax_layout(), feat=self.feat_dims, dtype=dtype,
+            device=self.I.weight.device)
+
+    def int8_sample_weights(self) -> Int8SampleLoopWeights:
+        """The sample-path weights quantized from the float32 parameters in
+        the int8 kernels' layout (both int8 modes take the same weights)."""
+        return Int8SampleLoopWeights.from_flax_layout(
+            *self._flax_layout(), feat=self.feat_dims,
+            device=self.I.weight.device)
 
 
 def fold_with_overlap(x, target: int, overlap: int):
@@ -222,31 +234,94 @@ def _finalize(output, batched: bool, overlap: int, mu_law: bool,
                        torch.zeros_like(output))[:wave_len]
 
 
-@torch.no_grad()
-def generate(model: WaveRNN, mels, *, batched: bool = True,
-             target: int = 11000, overlap: int = 550, mu_law: bool = True,
-             seed: int = 0, weights: SampleLoopWeights | None = None):
-    """upsample -> fold -> sample loop -> unfold -> mu-law (RAW) -> fade-out
-    (`wavernn.py:553-631`). mels (t_mel, n_mels) or (1, t_mel, n_mels) in
-    [0, 1]; returns a waveform of (t_mel - 1) * hop samples. ``weights``:
-    the prepared sample-path weights (bf16 for the kernel); built from the
-    model in float32 when omitted."""
-    mu_law = mu_law and model.mode == "RAW"
-    if mels.ndim == 2:
-        mels = mels[None]
-    if mels.shape[0] != 1:
-        raise ValueError("generate() vocodes one utterance")
-    mels = _clamp_mels(mels.float())
-    t_mel = mels.shape[1]
-    wave_len = (t_mel - 1) * model.hop_length
-    mels = F.pad(mels, (0, 0, model.pad, model.pad))
+def _int8_dtype(int8_weights):
+    """Map the int8_weights flag to the sample loop's weight_dtype
+    (`wavernn.py:392-398`): True -> "int8" (dequantize before each
+    product); "mxu" -> "int8_mxu" (int8 x int8 products with activations
+    quantized per row on the fly); falsy -> None (bf16 weights)."""
+    if int8_weights == "mxu":
+        return "int8_mxu"
+    return "int8" if int8_weights else None
+
+
+def _default_weights(model: WaveRNN, weight_dtype):
+    return (model.sample_weights(torch.float32) if weight_dtype is None
+            else model.int8_sample_weights())
+
+
+def _upsample_fold(model: WaveRNN, mels, batched, target, overlap):
+    """Clamp, pad by ``pad`` frames, upsample and (optionally) fold one
+    utterance (1, t_mel, n_mels) -> (mels_up, aux), (rows, T, .)."""
+    mels = F.pad(_clamp_mels(mels.float()), (0, 0, model.pad, model.pad))
     mels_up, aux = model.upsample(mels)
     if batched:
         mels_up = fold_with_overlap(mels_up, target, overlap)
         aux = fold_with_overlap(aux, target, overlap)
+    return mels_up, aux
+
+
+@torch.no_grad()
+def generate(model: WaveRNN, mels, *, batched: bool = True,
+             target: int = 11000, overlap: int = 550, mu_law: bool = True,
+             seed: int = 0, weights=None, int8_weights=False):
+    """upsample -> fold -> sample loop -> unfold -> mu-law (RAW) -> fade-out
+    (`wavernn.py:553-631`). mels (t_mel, n_mels) or (1, t_mel, n_mels) in
+    [0, 1]; returns a waveform of (t_mel - 1) * hop samples.
+    ``int8_weights``: False, True or "mxu" (``_int8_dtype``). ``weights``:
+    the prepared sample-path weights of that mode (bf16 ``SampleLoopWeights``
+    or ``Int8SampleLoopWeights`` for the kernels); built from the model when
+    omitted (float32 for the bf16 mode)."""
+    mu_law = mu_law and model.mode == "RAW"
+    if mels.ndim == 2:
+        mels = mels[None]
+    if mels.shape[0] != 1:
+        raise ValueError("generate() vocodes one utterance; see "
+                         "generate_batch()")
+    wave_len = (mels.shape[1] - 1) * model.hop_length
+    mels_up, aux = _upsample_fold(model, mels, batched, target, overlap)
+    weight_dtype = _int8_dtype(int8_weights)
     if weights is None:
-        weights = model.sample_weights(torch.float32)
+        weights = _default_weights(model, weight_dtype)
     samples, _ = wavernn_sample_loop(
         _conditioning_streams(mels_up, aux), weights, mode=model.mode,
-        n_classes=model.n_classes, seed=seed)
+        n_classes=model.n_classes, seed=seed, weight_dtype=weight_dtype)
     return _finalize(samples.T, batched, overlap, mu_law, model, wave_len)
+
+
+@torch.no_grad()
+def generate_batch(model: WaveRNN, mels_list, *, target: int = 11000,
+                   overlap: int = 550, mu_law: bool = True, seed: int = 0,
+                   weights=None, int8_weights=False):
+    """Vocode several utterances in one sample-loop launch
+    (`wavernn.py:634-718`): each mel is clamped, padded, upsampled and folded
+    on its own; the fold rows of all utterances (all target + 2*overlap
+    long) run as one batch; the output is split per utterance and each is
+    unfolded and finalized. Returns a list of waveforms of (t_i - 1) * hop
+    samples. ``int8_weights`` and ``weights`` as in ``generate``.
+
+    Not ported, as TPU-only and output-equivalent: the mel-length bucketing
+    (``_bucket_len``) with the ``_live_folds`` pruning it needs, whose only
+    purpose is to bound the number of XLA compiles (PyTorch compiles
+    nothing per shape; zero padding leaves every sample below wave_len
+    unchanged, `tests/test_wavernn.py:183-195`), and the row pad to a
+    multiple of 8, the TPU sublane (rows are independent)."""
+    mu_law = mu_law and model.mode == "RAW"
+    ups, auxs, counts, wave_lens = [], [], [], []
+    for mel in mels_list:
+        mel = torch.as_tensor(mel, device=model.I.weight.device)
+        mel = mel[None] if mel.ndim == 2 else mel
+        wave_lens.append((mel.shape[1] - 1) * model.hop_length)
+        up, aux = _upsample_fold(model, mel, True, target, overlap)
+        ups.append(up)
+        auxs.append(aux)
+        counts.append(up.shape[0])
+    weight_dtype = _int8_dtype(int8_weights)
+    if weights is None:
+        weights = _default_weights(model, weight_dtype)
+    samples, _ = wavernn_sample_loop(
+        _conditioning_streams(torch.cat(ups), torch.cat(auxs)), weights,
+        mode=model.mode, n_classes=model.n_classes, seed=seed,
+        weight_dtype=weight_dtype)
+    rows = samples.T.split(counts)
+    return [_finalize(r, True, overlap, mu_law, model, n)
+            for r, n in zip(rows, wave_lens)]

@@ -1,16 +1,22 @@
-"""WaveRNN sample loop: the CUDA kernel ``csrc/wavernn_cell.cu`` and its plain
-PyTorch version.
+"""WaveRNN sample loop: the CUDA kernels ``csrc/wavernn_cell.cu`` and their
+plain PyTorch versions.
 
 Replaces the Pallas TPU kernel ``etts/ops/pallas/wavernn_cell.py``
-(``wavernn_sample_loop`` -> ``_make_kernel``, ``pallas_call`` at :351).
-Bound on the H100: every step's five dependent matrix-vector products read
-the ~3.8 M bf16 sample-path weights (7.6 MB at flagship width) again, so the
-step time is a weight read; the arithmetic at B <= ~11 rows is small. Design:
-one persistent block per fold row runs all T steps in one launch, streaming
-the L2-resident weights with f32 accumulation (see the note in the source).
+(``wavernn_sample_loop`` -> ``_make_kernel``, ``pallas_call`` at :351) in its
+three weight modes: bf16 matrices (``weight_dtype=None``), and per-column
+symmetric int8 matrices, either dequantized before each product
+(``"int8"``) or multiplied as int8 x int8 -> int32 against activations
+quantized per row on the fly (``"int8_mxu"``).
+Bound on the H100: every step's dependent matrix-vector products read the
+~3.8 M sample-path weights again (7.6 MB in bf16, 3.8 MB in int8 at flagship
+width), so the step time is a weight read; the arithmetic at B <= ~11 rows is
+small. Design: one persistent block per fold row runs all T steps in one
+launch, streaming the L2-resident weights with f32 (int32) accumulation (see
+the note in the source).
 
-``wavernn_sample_loop`` launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors; it never falls back from one to the other.
+``wavernn_sample_loop`` launches the mode's kernel for CUDA tensors and runs
+the mode's plain version for CPU tensors; it never falls back from one to the
+other.
 """
 from __future__ import annotations
 
@@ -98,15 +104,125 @@ class SampleLoopWeights:
         return sum(x.numel() * x.element_size() for x in self.tensors())
 
 
+INT8_MODES = ("int8", "int8_mxu")
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def quantize_int8(w):
+    """Per-column symmetric int8 of an (in, out) float32 matrix, as the TPU
+    kernel's ``prep`` (`wavernn_cell.py:287-297`): s = max(max|w| over the
+    input axis / 127, 1e-12), q = clip(round_half_even(w / s), -127, 127).
+    Returns (q (out, in) int8, s (out,) float32)."""
+    w = torch.as_tensor(w, dtype=torch.float32)
+    s = torch.clamp(w.abs().amax(0) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q.T.contiguous(), s
+
+
+@dataclass
+class Int8SampleLoopWeights:
+    """Sample-path weights in the int8 kernels' layout, quantized from the
+    model's float32 parameters. Each split of a concatenated input is
+    quantized on its own, with its own scale row, as the TPU kernel does:
+    ``wic`` acts on [mel | a1] (the x_prev row of W_I stays float32 in
+    ``ix``), ``w2x``/``w2a`` on [x | a2], ``wf1x``/``wf1a`` on [x | a3],
+    ``wf2x``/``wf2a`` on [y | a4]. Matrices are (out, in) int8 with the
+    inner dimension zero-padded to a multiple of 4; ``s_*`` are the eleven
+    (out,) float32 scale rows; biases float32."""
+    ix: torch.Tensor
+    wic: torch.Tensor
+    s_wic: torch.Tensor
+    bI: torch.Tensor
+    wi1: torch.Tensor
+    s_wi1: torch.Tensor
+    wh1: torch.Tensor
+    s_wh1: torch.Tensor
+    bi1: torch.Tensor
+    bh1: torch.Tensor
+    w2x: torch.Tensor
+    s_w2x: torch.Tensor
+    w2a: torch.Tensor
+    s_w2a: torch.Tensor
+    wh2: torch.Tensor
+    s_wh2: torch.Tensor
+    bi2: torch.Tensor
+    bh2: torch.Tensor
+    wf1x: torch.Tensor
+    s_wf1x: torch.Tensor
+    wf1a: torch.Tensor
+    s_wf1a: torch.Tensor
+    bf1: torch.Tensor
+    wf2x: torch.Tensor
+    s_wf2x: torch.Tensor
+    wf2a: torch.Tensor
+    s_wf2a: torch.Tensor
+    bf2: torch.Tensor
+    wf3: torch.Tensor
+    s_wf3: torch.Tensor
+    bf3: torch.Tensor
+    feat: int
+    adim: int
+
+    @classmethod
+    def from_flax_layout(cls, W_I, b_I, wi1, wh1, bi1, bh1, wi2, wh2, bi2,
+                         bh2, Wf1, bf1, Wf2, bf2, Wf3, bf3, *, feat: int,
+                         device=None):
+        """Quantize (in, out) float32 matrices as the flax WaveRNN stores
+        them (the arguments of ``SampleLoopWeights.from_flax_layout``)."""
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)
+        W_I, wi2, Wf1, Wf2 = f32(W_I), f32(wi2), f32(Wf1), f32(Wf2)
+        d, fc = W_I.shape[1], Wf2.shape[1]
+        adim = W_I.shape[0] - 1 - feat
+        parts = {k: f32(v) for k, v in (
+            ("ix", W_I[0]), ("bI", b_I), ("bi1", bi1), ("bh1", bh1),
+            ("bi2", bi2), ("bh2", bh2), ("bf1", bf1), ("bf2", bf2),
+            ("bf3", bf3))}
+        for name, w in (("wic", W_I[1:]), ("wi1", wi1), ("wh1", wh1),
+                        ("w2x", wi2[:d]), ("w2a", wi2[d:]), ("wh2", wh2),
+                        ("wf1x", Wf1[:d]), ("wf1a", Wf1[d:]),
+                        ("wf2x", Wf2[:fc]), ("wf2a", Wf2[fc:]), ("wf3", Wf3)):
+            q, s = quantize_int8(w)
+            pad = _round4(q.shape[1]) - q.shape[1]
+            parts[name] = torch.nn.functional.pad(q, (0, pad))
+            parts["s_" + name] = s
+        return cls(**{k: v.to(device).contiguous() for k, v in parts.items()},
+                   feat=feat, adim=adim)
+
+    @property
+    def d(self) -> int:
+        return self.ix.shape[0]
+
+    @property
+    def fc(self) -> int:
+        return self.bf1.shape[0]
+
+    @property
+    def n_out(self) -> int:
+        return self.bf3.shape[0]
+
+    tensors = SampleLoopWeights.tensors
+    n_bytes = SampleLoopWeights.n_bytes
+
+
 def n_draw(mode: str, n_classes: int, n_out: int) -> int:
     """Uniforms per row and step: the mixture pick plus the logistic draw
     (MOL), or one per class (RAW)."""
     return n_out // 3 + 1 if mode == "MOL" else n_classes
 
 
-def _check(cond, w: SampleLoopWeights, mode: str):
+def _check(cond, w, mode: str, weight_dtype):
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if weight_dtype not in (None,) + INT8_MODES:
+        raise ValueError(f"weight_dtype must be None or one of {INT8_MODES}, "
+                         f"got {weight_dtype!r}")
+    want = SampleLoopWeights if weight_dtype is None else Int8SampleLoopWeights
+    if not isinstance(w, want):
+        raise TypeError(f"weight_dtype={weight_dtype!r} takes "
+                        f"{want.__name__}, got {type(w).__name__}")
     if cond.ndim != 3 or cond.shape[2] != w.feat + 4 * w.adim:
         raise ValueError(f"cond must be (T, B, {w.feat + 4 * w.adim}), got "
                          f"{tuple(cond.shape)}")
@@ -118,28 +234,20 @@ def init_state(B: int, d: int, device) -> dict:
             "x": torch.zeros(B, device=device), "step": 0}
 
 
-@torch.no_grad()
-def wavernn_sample_loop_plain(cond, w: SampleLoopWeights, *, mode="MOL",
-                              n_classes=30, noise=None, generator=None,
-                              state=None, teacher=None):
-    """The plain PyTorch version: same arithmetic as the kernel in float32
-    (matrices cast up from their stored dtype), conditioning projections
-    hoisted into batched matmuls.
+def _gru(gi, gh, h):
+    d = h.shape[1]
+    r = torch.sigmoid(gi[:, :d] + gh[:, :d])
+    z = torch.sigmoid(gi[:, d:2 * d] + gh[:, d:2 * d])
+    n = torch.tanh(gi[:, 2 * d:] + r * gh[:, 2 * d:])
+    return (1.0 - z) * n + z * h
 
-    cond (T, B, feat + 4*adim) = [mels_up | a1 | a2 | a3 | a4]. Uniforms come
-    from ``noise`` (T, B, n_draw) or ``generator``. ``teacher`` (T, B), when
-    given, replaces the fed-back sample of step t with teacher[t] (the
-    kernel's own output, to check each step's function without feedback
-    divergence). Returns (samples (T, B), state)."""
-    _check(cond, w, mode)
-    T, B, _ = cond.shape
+
+def _float_step(cond, w: SampleLoopWeights):
+    """One step of the bf16 (or float32) weights in float32 arithmetic:
+    matrices cast up from their stored dtype, activations float32,
+    conditioning projections hoisted into batched matmuls."""
     f = lambda x: x.float()
-    d, fc, feat, adim = w.d, w.fc, w.feat, w.adim
-    fa = feat + adim
-    state = init_state(B, d, cond.device) if state is None else state
-    h1, h2, x_prev = state["h1"].clone(), state["h2"].clone(), state["x"].clone()
-    nd = n_draw(mode, n_classes, w.n_out)
-    nr = w.n_out // 3
+    d, fc, fa, adim = w.d, w.fc, w.feat + w.adim, w.adim
     cond = cond.float()
     wI = f(w.wI)
     i_s = cond[..., :fa] @ wI[:, 1:1 + fa].T + w.bI
@@ -150,54 +258,163 @@ def wavernn_sample_loop_plain(cond, w: SampleLoopWeights, *, mode="MOL",
     wi2x, wh2 = f(w.wi2)[:, :d].T, f(w.wh2).T
     wf1x, wf2x, wf3 = f(w.wf1)[:, :d].T, f(w.wf2)[:, :fc].T, f(w.wf3).T
 
-    def gru(gi, gh, h):
-        r = torch.sigmoid(gi[:, :d] + gh[:, :d])
-        z = torch.sigmoid(gi[:, d:2 * d] + gh[:, d:2 * d])
-        n = torch.tanh(gi[:, 2 * d:] + r * gh[:, 2 * d:])
-        return (1.0 - z) * n + z * h
-
-    out = cond.new_empty(T, B)
-    for t in range(T):
+    def step(t, x_prev, h1, h2):
         inp = i_s[t] + x_prev[:, None] * wx
-        h1 = gru(inp @ wi1 + w.bi1, h1 @ wh1 + w.bh1, h1)
+        h1 = _gru(inp @ wi1 + w.bi1, h1 @ wh1 + w.bh1, h1)
         x = inp + h1
-        h2 = gru(x @ wi2x + gi2_s[t], h2 @ wh2 + w.bh2, h2)
+        h2 = _gru(x @ wi2x + gi2_s[t], h2 @ wh2 + w.bh2, h2)
         x = x + h2
         y = torch.relu(x @ wf1x + f1_s[t])
         y = torch.relu(y @ wf2x + f2_s[t])
-        logits = y @ wf3 + w.bf3
+        return y @ wf3 + w.bf3, h1, h2
+    return step
+
+
+def _lane_order(q):
+    """(out, k) int8 -> (n_it, step, out, 32) float32: the elements each
+    lane of a warp meets in the int8 kernel's product (``qpart``), lane l
+    of iteration ``it`` reading `step` consecutive ones from (it * 32 + l) *
+    step, step 16 where k is a multiple of 16, else 4; zero past k."""
+    out, k = q.shape
+    step = 16 if k % 16 == 0 else 4
+    n_it = -(-k // (32 * step))
+    q = torch.nn.functional.pad(q.float(), (0, n_it * 32 * step - k))
+    return q.reshape(out, n_it, 32, step).permute(1, 3, 0, 2).contiguous()
+
+
+def _kernel_order_dot(act, q):
+    """sum_i act[:, i] * q[o, i] in float32 in the int8 kernel's order: each
+    lane adds its products one by one (each exact: bf16 times int8), then
+    the warp adds the 32 lane sums as a butterfly (``warp_sum``). With the
+    same order both sides round the same sums, so no activation's bf16
+    rounding goes the other way and spreads through the recurrence."""
+    n_it, step, out, _ = q.shape
+    a = torch.nn.functional.pad(act, (0, n_it * 32 * step - act.shape[-1]))
+    a = a.reshape(-1, n_it, 32, step)
+    acc = act.new_zeros(a.shape[0], out, 32)
+    for it in range(n_it):
+        for j in range(step):
+            acc = acc + a[:, None, it, :, j] * q[it, j]
+    for off in (16, 8, 4, 2, 1):
+        acc = acc[..., :off] + acc[..., off:2 * off]
+    return acc[..., 0]
+
+
+def _int8_step(cond, w: Int8SampleLoopWeights, mxu: bool):
+    """One step of the int8 weights with the TPU kernel's rounding
+    (`wavernn_cell.py:80-106, 126-165`): the conditioning stream is rounded
+    to bf16; ``int8`` rounds each product's activation to bf16 and computes
+    (act . q) * s_col in float32, summed in the kernel's order;
+    ``int8_mxu`` quantizes each activation row on its own, sa =
+    max(max|act|, 1e-9) / 127, qa = round_half_even(act / sa) clipped to
+    +-127, and computes the integer sum (qa . q) exactly (float32 while
+    k * 127^2 < 2^24, where every partial sum is an integer float32 holds,
+    else float64) times sa * s_col. Each split of a concatenated input is
+    its own product; x_prev . W_I[0] and the biases stay float32."""
+    d, fc, fa, adim = w.d, w.fc, w.feat + w.adim, w.adim
+    cond = cond.to(torch.bfloat16).float()
+    ma1, a2 = cond[..., :fa], cond[..., fa:fa + adim]
+    a3, a4 = cond[..., fa + adim:fa + 2 * adim], cond[..., fa + 2 * adim:]
+    mats = {}
+    for name, k in (("wic", fa), ("wi1", d), ("wh1", d), ("w2x", d),
+                    ("w2a", adim), ("wh2", d), ("wf1x", d), ("wf1a", adim),
+                    ("wf2x", fc), ("wf2a", adim), ("wf3", fc)):
+        q = getattr(w, name)
+        if mxu:
+            exact = torch.float32 if k * 127 * 127 < 2 ** 24 else torch.float64
+            q = q[:, :k].to(exact).T
+        else:
+            q = _lane_order(q)
+        mats[name] = (q, getattr(w, "s_" + name))
+
+    def dot(act, name):
+        q, s = mats[name]
+        if mxu:
+            m = torch.clamp(act.abs().amax(-1, keepdim=True), min=1e-9)
+            # a tensor divisor: CUDA divides by a Python scalar as a multiply
+            # by its reciprocal, which is not the TPU kernel's division
+            sa = m / torch.full_like(m, 127.0)
+            qa = torch.clamp(torch.round(act / sa), -127.0, 127.0)
+            return (qa.to(q.dtype) @ q).float() * sa * s
+        return _kernel_order_dot(act.to(torch.bfloat16).float(), q) * s
+
+    def step(t, x_prev, h1, h2):
+        inp = dot(ma1[t], "wic") + w.bI + x_prev[:, None] * w.ix
+        h1 = _gru(dot(inp, "wi1") + w.bi1, dot(h1, "wh1") + w.bh1, h1)
+        x = inp + h1
+        h2 = _gru(dot(x, "w2x") + dot(a2[t], "w2a") + w.bi2,
+                  dot(h2, "wh2") + w.bh2, h2)
+        x = x + h2
+        y = torch.relu(dot(x, "wf1x") + dot(a3[t], "wf1a") + w.bf1)
+        y = torch.relu(dot(y, "wf2x") + dot(a4[t], "wf2a") + w.bf2)
+        return dot(y, "wf3") + w.bf3, h1, h2
+    return step
+
+
+def _sample(logits, u, mode: str, n_classes: int):
+    """MOL: Gumbel-max mixture pick, then the logistic inverse CDF with
+    log-scale >= log 1e-14, clipped to [-1, 1]; RAW: Gumbel-max class c ->
+    2c / (n_classes - 1) - 1. Uniforms clipped to [1e-5, 1 - 1e-5]."""
+    u = u.float().clamp(1e-5, 1.0 - 1e-5)
+    if mode == "RAW":
+        g = logits[:, :n_classes] - torch.log(-torch.log(u))
+        return 2.0 * g.argmax(-1).float() / (n_classes - 1.0) - 1.0
+    nr = logits.shape[1] // 3
+    g = logits[:, :nr] - torch.log(-torch.log(u[:, :nr]))
+    k = g.argmax(-1, keepdim=True)
+    mean = logits[:, nr:2 * nr].gather(1, k)[:, 0]
+    ls = torch.clamp(logits[:, 2 * nr:3 * nr].gather(1, k)[:, 0],
+                     min=LOG_SCALE_MIN)
+    u2 = u[:, nr]
+    return torch.clamp(mean + torch.exp(ls)
+                       * (torch.log(u2) - torch.log1p(-u2)), -1.0, 1.0)
+
+
+@torch.no_grad()
+def wavernn_sample_loop_plain(cond, w, *, mode="MOL", n_classes=30,
+                              noise=None, generator=None, state=None,
+                              teacher=None, weight_dtype=None):
+    """The plain PyTorch version of the kernel of ``weight_dtype``, with the
+    same arithmetic: float32 activations for ``SampleLoopWeights``
+    (``weight_dtype=None``), the TPU kernel's int8 rounding for
+    ``Int8SampleLoopWeights`` (``"int8"``, ``"int8_mxu"``).
+
+    cond (T, B, feat + 4*adim) = [mels_up | a1 | a2 | a3 | a4]. Uniforms come
+    from ``noise`` (T, B, n_draw) or ``generator``. ``teacher`` (T, B), when
+    given, replaces the fed-back sample of step t with teacher[t] (the
+    kernel's own output, to check each step's function without feedback
+    divergence). Returns (samples (T, B), state)."""
+    _check(cond, w, mode, weight_dtype)
+    T, B, _ = cond.shape
+    state = init_state(B, w.d, cond.device) if state is None else state
+    h1, h2, x_prev = state["h1"].clone(), state["h2"].clone(), state["x"].clone()
+    nd = n_draw(mode, n_classes, w.n_out)
+    step = (_float_step(cond, w) if weight_dtype is None
+            else _int8_step(cond, w, weight_dtype == "int8_mxu"))
+    out = torch.empty(T, B, device=cond.device)
+    for t in range(T):
+        logits, h1, h2 = step(t, x_prev.float(), h1, h2)
         u = (noise[t] if noise is not None else torch.rand(
             B, nd, generator=generator, device=cond.device))
-        u = u.float().clamp(1e-5, 1.0 - 1e-5)
-        if mode == "MOL":
-            g = logits[:, :nr] - torch.log(-torch.log(u[:, :nr]))
-            k = g.argmax(-1, keepdim=True)
-            mean = logits[:, nr:2 * nr].gather(1, k)[:, 0]
-            ls = torch.clamp(logits[:, 2 * nr:3 * nr].gather(1, k)[:, 0],
-                             min=LOG_SCALE_MIN)
-            u2 = u[:, nr]
-            s = torch.clamp(mean + torch.exp(ls)
-                            * (torch.log(u2) - torch.log1p(-u2)), -1.0, 1.0)
-        else:
-            g = logits[:, :n_classes] - torch.log(-torch.log(u))
-            s = 2.0 * g.argmax(-1).float() / (n_classes - 1.0) - 1.0
-        out[t] = s
-        x_prev = s if teacher is None else teacher[t].float()
+        out[t] = _sample(logits, u, mode, n_classes)
+        x_prev = out[t] if teacher is None else teacher[t].float()
     return out, {"h1": h1, "h2": h2, "x": x_prev, "step": state["step"] + T}
 
 
-def _launch(cond, w: SampleLoopWeights, mode, n_classes, noise, seed, state):
+_COUNTER = {None: "launches", "int8": "launches_int8",
+            "int8_mxu": "launches_int8_mxu"}
+
+
+def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
     lib = _build.load("wavernn_cell")
     T, B, C = cond.shape
+    mat_dt = torch.bfloat16 if weight_dtype is None else torch.int8
     for x in w.tensors():
         if x.device != cond.device or not x.is_contiguous():
             raise ValueError("weights must be contiguous on the cond device")
-    for x in (w.wI, w.wi1, w.wh1, w.wi2, w.wh2, w.wf1, w.wf2, w.wf3):
-        if x.dtype != torch.bfloat16:
-            raise TypeError("the kernel takes bf16 weight matrices")
-    for x in (w.bI, w.bi1, w.bh1, w.bi2, w.bh2, w.bf1, w.bf2, w.bf3):
-        if x.dtype != torch.float32:
-            raise TypeError("the kernel takes float32 bias vectors")
+        if x.dtype != (mat_dt if x.dim() == 2 else torch.float32):
+            raise TypeError(f"the kernel takes {mat_dt} matrices and float32 "
+                            "vectors")
     nd = n_draw(mode, n_classes, w.n_out)
     if mode == "MOL" and w.n_out % 3:
         raise ValueError("MOL needs 3 * nr_mix outputs")
@@ -207,47 +424,62 @@ def _launch(cond, w: SampleLoopWeights, mode, n_classes, noise, seed, state):
         if noise.shape != (T, B, nd) or noise.dtype != torch.float32:
             raise ValueError(f"noise must be float32 (T, B, {nd})")
         noise = noise.contiguous()
-    cond = cond.float().contiguous()
+    # the bf16 kernel reads float32 conditioning; the int8 kernels read the
+    # bf16 stream of the TPU kernel (stream_dt)
+    cond = (cond.float() if weight_dtype is None
+            else cond.to(torch.bfloat16)).contiguous()
     state = init_state(B, w.d, cond.device) if state is None else state
     h1 = state["h1"].float().contiguous().clone()
     h2 = state["h2"].float().contiguous().clone()
     x = state["x"].float().contiguous().clone()
     out = torch.empty(T, B, device=cond.device)
-    ptrs = _build.ptr_array([cond, w.wI, w.bI, w.wi1, w.wh1, w.bi1, w.bh1,
-                             w.wi2, w.wh2, w.bi2, w.bh2, w.wf1, w.bf1, w.wf2,
-                             w.bf2, w.wf3, w.bf3, h1, h2, x, noise, out])
-    ints = _build.int_array([T, B, C, w.feat, w.adim, w.d, w.fc, w.n_out,
-                             w.wI.shape[1], MODES.index(mode),
-                             w.n_out // 3 if mode == "MOL" else n_classes, nd])
-    fn = lib.wavernn_sample_loop_launch
+    ptrs = _build.ptr_array([cond, *w.tensors(), h1, h2, x, noise, out])
+    ints = [T, B, C, w.feat, w.adim, w.d, w.fc, w.n_out,
+            (w.wI if weight_dtype is None else w.wic).shape[1],
+            MODES.index(mode), w.n_out // 3 if mode == "MOL" else n_classes, nd]
+    if weight_dtype is not None:     # padded inner widths: d, adim, fc
+        ints += [w.wi1.shape[1], w.w2a.shape[1], w.wf2x.shape[1]]
+    suffix = "" if weight_dtype is None else "_" + weight_dtype
+    fn = getattr(lib, f"wavernn_sample_loop{suffix}_launch")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                    ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(ptrs, ints, LOG_SCALE_MIN, state["step"], seed & (2 ** 64 - 1),
-             1024, torch.cuda.current_stream(cond.device).cuda_stream)
-    _build.check(err, "wavernn_sample_loop")
-    wavernn_sample_loop.launches += 1
+    err = fn(ptrs, _build.int_array(ints), LOG_SCALE_MIN, state["step"],
+             seed & (2 ** 64 - 1), 1024,
+             torch.cuda.current_stream(cond.device).cuda_stream)
+    _build.check(err, f"wavernn_sample_loop{suffix}")
+    counter = _COUNTER[weight_dtype]
+    setattr(wavernn_sample_loop, counter,
+            getattr(wavernn_sample_loop, counter) + 1)
     return out, {"h1": h1, "h2": h2, "x": x, "step": state["step"] + T}
 
 
-def wavernn_sample_loop(cond, w: SampleLoopWeights, *, mode="MOL",
-                        n_classes=30, noise=None, seed=0, state=None):
-    """Run the sample loop: the kernel for CUDA tensors, the plain version
-    (with a generator seeded from ``seed``) for CPU tensors.
+def wavernn_sample_loop(cond, w, *, mode="MOL", n_classes=30, noise=None,
+                        seed=0, state=None, weight_dtype=None):
+    """Run the sample loop: the kernel of ``weight_dtype`` for CUDA tensors,
+    its plain version (with a generator seeded from ``seed``) for CPU
+    tensors.
 
+    ``w``: ``SampleLoopWeights`` (bf16 for the kernel) when ``weight_dtype``
+    is None, ``Int8SampleLoopWeights`` for ``"int8"`` and ``"int8_mxu"``.
     cond (T, B, feat + 4*adim); ``noise`` optional uniforms (T, B, n_draw);
     ``state`` {h1, h2, x, step} from an earlier chunk continues the same
     sequence (the kernel's Philox stream is indexed by the global step).
-    Returns (samples (T, B), state)."""
-    _check(cond, w, mode)
+    Returns (samples (T, B), state). Each kernel counts its launches:
+    ``launches`` (bf16), ``launches_int8``, ``launches_int8_mxu``."""
+    _check(cond, w, mode, weight_dtype)
     if cond.is_cuda:
-        return _launch(cond, w, mode, n_classes, noise, seed, state)
+        return _launch(cond, w, mode, n_classes, noise, seed, state,
+                       weight_dtype)
     gen = None
     if noise is None:
         gen = torch.Generator().manual_seed(seed + (state or {}).get("step", 0))
     return wavernn_sample_loop_plain(cond, w, mode=mode, n_classes=n_classes,
-                                     noise=noise, generator=gen, state=state)
+                                     noise=noise, generator=gen, state=state,
+                                     weight_dtype=weight_dtype)
 
 
 wavernn_sample_loop.launches = 0
+wavernn_sample_loop.launches_int8 = 0
+wavernn_sample_loop.launches_int8_mxu = 0

@@ -61,6 +61,9 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--attn_stop_patience", type=int, default=None)
     p.add_argument("--frames_per_token", type=float, default=None)
+    p.add_argument("--int8", action="store_true",
+                   help="int8 vocoder sample-loop weights (half the bytes "
+                        "each step reads)")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
 
@@ -80,7 +83,8 @@ def main(argv=None):
                           seed=a.seed + i,
                           attn_stop_patience=a.attn_stop_patience,
                           max_frames_per_token=a.frames_per_token)["mel"]
-        wav = voc.generate((mel + 4.0) / 8.0, seed=a.seed + i)
+        wav = voc.generate((mel + 4.0) / 8.0, seed=a.seed + i,
+                           int8_weights=a.int8 or None)
         write_wav(out / f"{i}.wav", wav, sr)
         np.save(out / f"{i}_mel.npy", mel)
         print(f"{i}: {sentence!r} -> {mel.shape[0]} frames, "

@@ -5,82 +5,26 @@ AudioProcessor -> encode_ref -> autoregressive_predict, and generate.
 The vocoder is peaky RAW, so its sampling is deterministic."""
 import subprocess
 import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import yaml
 
 from etts.models.autoregressive import (AutoregressiveTransformer as JM,
                                         autoregressive_predict)
 from etts.models.wavernn import generate as jgenerate
 from etts.ops.audio import AudioProcessor
-from etts.utils.config import ConfigManager
 from etts_torch.api import TTSSynthesizer, VocoderSynthesizer
 from etts_torch.ops.kernels.decoder_step import can_fuse
-from torch_parity import flatten
+from torch_parity import ROOT, small_workspace
 
-ROOT = Path(__file__).resolve().parents[1]
 TEXT = "Hello world, this is 42 tests."
-TTS_SMALL = dict(
-    decoder_model_dimension=32, encoder_model_dimension=32,
-    decoder_num_heads=[2, 2], encoder_num_heads=[2, 2],
-    encoder_feed_forward_dimension=48, decoder_feed_forward_dimension=48,
-    decoder_prenet_dimension=24, encoder_prenet_dimension=32,
-    encoder_attention_conv_filters=32, decoder_attention_conv_filters=32,
-    postnet_conv_filters=16, postnet_conv_layers=3, postnet_kernel_size=3,
-    encoder_dense_blocks=2, decoder_dense_blocks=2,
-    ref_encoder_filters=[4, 8], ref_encoder_gru_cell_units=8,
-    gst_style_embed_dim=16, gst_multi_num_heads=2, gst_heads=5,
-    reduction_factor_schedule=[[0, 2], [80000, 1]])
-VOC_SMALL = dict(voc_mode="RAW", voc_rnn_dims=16, voc_fc_dims=16,
-                 voc_compute_dims=8, voc_res_out_dims=8, voc_res_blocks=2,
-                 voc_target=600, voc_overlap=50)
-
-
-def _jit_init(model, kind):
-    """The inputs of etts.utils.config._init_variables, under jit (a few
-    times faster than its eager init)."""
-    k = jax.random.PRNGKey(0)
-    if kind == "autoregressive":
-        rngs = {"params": k, "dropout": k, "prenet": k}
-        return jax.jit(lambda g, ids, mel, spk: model.init(g, ids, mel, spk,
-                                                           r=1))(
-            rngs, jnp.ones((1, 8), jnp.int32), jnp.zeros((1, 6, 80)),
-            jnp.zeros((1, 1, 256)))
-    return jax.jit(lambda g, x, mel: model.init(g, x, mel, False))(
-        k, jnp.zeros((1, 4 * 200)), jnp.zeros((1, 8, 80)))
 
 
 @pytest.fixture(scope="module")
 def workspace(tmp_path_factory):
-    d = tmp_path_factory.mktemp("cfg")
-    for kind, over in (("autoregressive", TTS_SMALL), ("wavernn", VOC_SMALL),
-                       ("data", {"phonemizer_backend": "grapheme",
-                                 "log_directory": str(d / "logs")})):
-        cfg = yaml.safe_load(open(ROOT / "configs/default" /
-                                  f"{kind}_config.yaml"))
-        cfg.update(over)
-        yaml.safe_dump(cfg, open(d / f"{kind}_config.yaml", "w"))
-    out = {"dir": d}
-    for kind in ("autoregressive", "wavernn"):
-        cm = ConfigManager(str(d), kind)
-        model = cm.get_model(ignore_hash=True)
-        variables = dict(_jit_init(model, kind))
-        if kind == "wavernn":   # near-delta categorical: argmax sampling
-            p = {k: dict(v) if hasattr(v, "items") else v
-                 for k, v in variables["params"].items()}
-            p["fc3"]["kernel"] = p["fc3"]["kernel"] * 1e6
-            variables["params"] = p
-        np.savez(d / f"{kind}.npz", **flatten(variables))
-        out[kind] = (cm, model, variables)
-    wav = np.random.default_rng(0).standard_normal(4000).astype(np.float32)
-    out["wav"] = 0.2 * wav
-    out["spk"] = np.random.default_rng(1).standard_normal(256).astype(
-        np.float32)
-    return out
+    return small_workspace(tmp_path_factory.mktemp("cfg"))
 
 
 @pytest.fixture(scope="module")

@@ -10,46 +10,19 @@ import torch
 
 from etts.models.wavernn import WaveRNN as JW, generate as jgenerate
 from etts.ops.pallas.wavernn_cell import wavernn_sample_loop as jloop
-from etts_torch.convert import load_into
-from etts_torch.models.wavernn import (WaveRNN as TW, fold_with_overlap,
-                                       generate, xfade_and_unfold)
+from etts_torch.models.wavernn import (fold_with_overlap, generate,
+                                       xfade_and_unfold)
 from etts_torch.ops.kernels.wavernn_cell import (SampleLoopWeights, n_draw,
                                                  wavernn_sample_loop,
                                                  wavernn_sample_loop_plain)
-from torch_parity import flatten, randomize_batch_stats, t
+from torch_parity import t, voc_pair
 
-TINY = dict(rnn_dims=16, fc_dims=16, bits=4, pad=2, upsample_factors=(2, 5),
-            feat_dims=8, compute_dims=8, res_out_dims=8, res_blocks=2,
-            hop_length=10)
 ATOL = 1e-4
-
-
-def _pair(mode="MOL", peaky=None, batch_stats=True):
-    jm = JW(mode=mode, sample_rate=100, **TINY)
-    v = jm.init(jax.random.PRNGKey(1), jnp.zeros((2, 50)),
-                jax.random.normal(jax.random.PRNGKey(0), (2, 9, 8)), False)
-    v = {k: dict(x) for k, x in v.items()}
-    # the smoothing kernels init to a constant 1/k, which would hide a
-    # reversed kernel: give them distinct values
-    up = dict(v["params"]["upsample"])
-    rng = np.random.default_rng(7)
-    for name in ("smooth_0", "smooth_1"):
-        k = up[name]["kernel"]
-        up[name] = {"kernel": jnp.asarray(rng.uniform(0, 0.3, k.shape),
-                                          jnp.float32)}
-    v["params"]["upsample"] = up
-    if batch_stats:
-        v = randomize_batch_stats(v)
-    if peaky:
-        v["params"] = dict(v["params"])
-        v["params"]["fc3"] = dict(v["params"]["fc3"])
-        v["params"]["fc3"]["kernel"] = v["params"]["fc3"]["kernel"] * peaky
-    return jm, v, load_into(TW(mode=mode, **TINY), flatten(v))
 
 
 @pytest.mark.parametrize("mode", ["MOL", "RAW"])
 def test_upsample_network(mode):
-    jm, v, tm = _pair(mode)
+    jm, v, tm = voc_pair(mode)
     mels = np.random.default_rng(0).standard_normal((2, 9, 8)).astype(
         np.float32)
     up, aux = jm.apply(v, jnp.asarray(mels), False, method=JW.upsample_cond)
@@ -61,7 +34,7 @@ def test_upsample_network(mode):
 
 @pytest.mark.parametrize("mode", ["MOL", "RAW"])
 def test_teacher_forced_forward(mode):
-    jm, v, tm = _pair(mode)
+    jm, v, tm = voc_pair(mode)
     rng = np.random.default_rng(1)
     mels = rng.standard_normal((2, 9, 8)).astype(np.float32)
     x = rng.uniform(-1, 1, (2, 50)).astype(np.float32)
@@ -215,7 +188,7 @@ def test_wrapper_runs_plain_on_cpu_without_counting():
 def test_generate_peaky_raw_matches_etts(batched):
     """Whole generate (clamp, upsample, fold, loop, unfold, mu-law, fade)
     against etts' scan path on a near-deterministic RAW vocoder."""
-    jm, v, tm = _pair("RAW", peaky=1e5)
+    jm, v, tm = voc_pair("RAW", peaky=1e5)
     mel = np.random.default_rng(3).uniform(0, 1, (12, 8)).astype(np.float32)
     want = np.asarray(jgenerate(jm, v, jnp.asarray(mel), batched=batched,
                                 target=30, overlap=10, mu_law=True,
@@ -227,7 +200,7 @@ def test_generate_peaky_raw_matches_etts(batched):
 
 
 def test_generate_mol_shape_and_range():
-    _, _, tm = _pair("MOL")
+    _, _, tm = voc_pair("MOL")
     mel = torch.rand(12, 8, generator=torch.Generator().manual_seed(0)) * 3
     wav = generate(tm, mel, target=30, overlap=10)
     assert wav.shape == (110,) and torch.isfinite(wav).all()

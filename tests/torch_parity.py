@@ -2,10 +2,13 @@
 build the same tiny model in flax and in ``etts_torch`` from one set of
 params, carried over through the exported flat-npz layout."""
 import functools
+from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
+import yaml
 
 from etts_torch.convert import load_into
 
@@ -110,3 +113,101 @@ def ar_pair(system_type="text", seed=0, batch_stats=True, **over):
 def t(x, dtype=None):
     """numpy / jax array -> torch tensor (CPU)."""
     return torch.from_numpy(np.array(x, dtype=dtype))
+
+
+VOC_TINY = dict(rnn_dims=16, fc_dims=16, bits=4, pad=2,
+                upsample_factors=(2, 5), feat_dims=8, compute_dims=8,
+                res_out_dims=8, res_blocks=2, hop_length=10)
+
+
+def voc_pair(mode="MOL", peaky=None, batch_stats=True):
+    """(flax WaveRNN, variables, torch WaveRNN) of VOC_TINY sharing one
+    random init; ``peaky`` scales fc3's kernel (a near-delta categorical in
+    RAW mode makes sampling an argmax)."""
+    from etts.models.wavernn import WaveRNN as JW
+    from etts_torch.models.wavernn import WaveRNN as TW
+    jm = JW(mode=mode, sample_rate=100, **VOC_TINY)
+    v = jm.init(jax.random.PRNGKey(1), jnp.zeros((2, 50)),
+                jax.random.normal(jax.random.PRNGKey(0), (2, 9, 8)), False)
+    v = {k: dict(x) for k, x in v.items()}
+    # the smoothing kernels init to a constant 1/k, which would hide a
+    # reversed kernel: give them distinct values
+    up = dict(v["params"]["upsample"])
+    rng = np.random.default_rng(7)
+    for name in ("smooth_0", "smooth_1"):
+        k = up[name]["kernel"]
+        up[name] = {"kernel": jnp.asarray(rng.uniform(0, 0.3, k.shape),
+                                          jnp.float32)}
+    v["params"]["upsample"] = up
+    if batch_stats:
+        v = randomize_batch_stats(v)
+    if peaky:
+        v["params"] = dict(v["params"])
+        v["params"]["fc3"] = dict(v["params"]["fc3"])
+        v["params"]["fc3"]["kernel"] = v["params"]["fc3"]["kernel"] * peaky
+    return jm, v, load_into(TW(mode=mode, **VOC_TINY), flatten(v))
+
+
+ROOT = Path(__file__).resolve().parents[1]
+TTS_SMALL = dict(
+    decoder_model_dimension=32, encoder_model_dimension=32,
+    decoder_num_heads=[2, 2], encoder_num_heads=[2, 2],
+    encoder_feed_forward_dimension=48, decoder_feed_forward_dimension=48,
+    decoder_prenet_dimension=24, encoder_prenet_dimension=32,
+    encoder_attention_conv_filters=32, decoder_attention_conv_filters=32,
+    postnet_conv_filters=16, postnet_conv_layers=3, postnet_kernel_size=3,
+    encoder_dense_blocks=2, decoder_dense_blocks=2,
+    ref_encoder_filters=[4, 8], ref_encoder_gru_cell_units=8,
+    gst_style_embed_dim=16, gst_multi_num_heads=2, gst_heads=5,
+    reduction_factor_schedule=[[0, 2], [80000, 1]])
+VOC_SMALL = dict(voc_mode="RAW", voc_rnn_dims=16, voc_fc_dims=16,
+                 voc_compute_dims=8, voc_res_out_dims=8, voc_res_blocks=2,
+                 voc_target=600, voc_overlap=50)
+
+
+def _jit_init(model, kind):
+    """The inputs of etts.utils.config._init_variables, under jit (a few
+    times faster than its eager init)."""
+    k = jax.random.PRNGKey(0)
+    if kind == "autoregressive":
+        rngs = {"params": k, "dropout": k, "prenet": k}
+        return jax.jit(lambda g, ids, mel, spk: model.init(g, ids, mel, spk,
+                                                           r=1))(
+            rngs, jnp.ones((1, 8), jnp.int32), jnp.zeros((1, 6, 80)),
+            jnp.zeros((1, 1, 256)))
+    return jax.jit(lambda g, x, mel: model.init(g, x, mel, False))(
+        k, jnp.zeros((1, 4 * 200)), jnp.zeros((1, 8, 80)))
+
+
+def small_workspace(d: Path) -> dict:
+    """Config dir ``d`` of configs/default shrunk by TTS_SMALL and
+    VOC_SMALL, the flat npz exports of one init of each model (the vocoder
+    a near-delta RAW categorical, so its sampling is an argmax), a seeded
+    reference wav and speaker vector. Returns {'dir', 'autoregressive',
+    'wavernn' ((ConfigManager, flax model, variables) each), 'wav',
+    'spk'}."""
+    from etts.utils.config import ConfigManager
+    for kind, over in (("autoregressive", TTS_SMALL), ("wavernn", VOC_SMALL),
+                       ("data", {"phonemizer_backend": "grapheme",
+                                 "log_directory": str(d / "logs")})):
+        cfg = yaml.safe_load(open(ROOT / "configs/default" /
+                                  f"{kind}_config.yaml"))
+        cfg.update(over)
+        yaml.safe_dump(cfg, open(d / f"{kind}_config.yaml", "w"))
+    out = {"dir": d}
+    for kind in ("autoregressive", "wavernn"):
+        cm = ConfigManager(str(d), kind)
+        model = cm.get_model(ignore_hash=True)
+        variables = dict(_jit_init(model, kind))
+        if kind == "wavernn":   # near-delta categorical: argmax sampling
+            p = {k: dict(v) if hasattr(v, "items") else v
+                 for k, v in variables["params"].items()}
+            p["fc3"]["kernel"] = p["fc3"]["kernel"] * 1e6
+            variables["params"] = p
+        np.savez(d / f"{kind}.npz", **flatten(variables))
+        out[kind] = (cm, model, variables)
+    wav = np.random.default_rng(0).standard_normal(4000).astype(np.float32)
+    out["wav"] = 0.2 * wav
+    out["spk"] = np.random.default_rng(1).standard_normal(256).astype(
+        np.float32)
+    return out
