@@ -7,12 +7,15 @@ three weight modes: bf16 matrices (``weight_dtype=None``), and per-column
 symmetric int8 matrices, either dequantized before each product
 (``"int8"``) or multiplied as int8 x int8 -> int32 against activations
 quantized per row on the fly (``"int8_mxu"``).
-Bound on the H100: every step's dependent matrix-vector products read the
-~3.8 M sample-path weights again (7.6 MB in bf16, 3.8 MB in int8 at flagship
-width), so the step time is a weight read; the arithmetic at B <= ~11 rows is
-small. Design: one persistent block per fold row runs all T steps in one
-launch, streaming the L2-resident weights with f32 (int32) accumulation (see
-the note in the source).
+Bound on the H100: every step's dependent products read the ~3.8 M
+sample-path weights again (7.65 MB in bf16, 3.8 MB in int8 at flagship
+width), so the step time is a weight read from L2; the arithmetic is small.
+bf16 design: one persistent block per tile of ``BF16_ROWS`` fold rows runs
+all T steps in one launch, every product on the tensor cores (``mma.sync``
+m16n8k16) with the weights packed once into A-fragment tiles
+(``pack_mma``), and the TPU kernel's bf16 rounding. int8 designs: one
+block per fold row, matrix-vector products on CUDA cores (see the note in
+the source).
 
 ``wavernn_sample_loop`` launches the mode's kernel for CUDA tensors and runs
 the mode's plain version for CPU tensors; it never falls back from one to the
@@ -32,30 +35,60 @@ LOG_SCALE_MIN = float(math.log(1e-14))
 MODES = ("MOL", "RAW")
 
 
-def _round8(n: int) -> int:
-    return (n + 7) // 8 * 8
+# The matrices of the sample path in the TPU kernel's split layout, in the
+# order the kernel reads them: each split of a concatenated input is its own
+# product ([mel | a1] -> wic, [x | a2] -> w2x, w2a, [x | a3] -> wf1x, wf1a,
+# [y | a4] -> wf2x, wf2a).
+MATRICES = ("wic", "wi1", "wh1", "w2x", "w2a", "wh2", "wf1x", "wf1a", "wf2x",
+            "wf2a", "wf3")
+
+
+def _split_flax_layout(W_I, b_I, wi1, wh1, bi1, bh1, wi2, wh2, bi2, bh2, Wf1,
+                       bf1, Wf2, bf2, Wf3, bf3, feat: int):
+    """The (in, out) float32 parameters as the flax WaveRNN stores them, cut
+    into the TPU kernel's splits: ({name: (in, out) matrix}, {name:
+    vector}, adim)."""
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)
+    W_I, wi2, Wf1, Wf2 = f32(W_I), f32(wi2), f32(Wf1), f32(Wf2)
+    d, fc = W_I.shape[1], Wf2.shape[1]
+    mats = dict(wic=W_I[1:], wi1=f32(wi1), wh1=f32(wh1), w2x=wi2[:d],
+                w2a=wi2[d:], wh2=f32(wh2), wf1x=Wf1[:d], wf1a=Wf1[d:],
+                wf2x=Wf2[:fc], wf2a=Wf2[fc:], wf3=f32(Wf3))
+    vecs = {k: f32(v) for k, v in (
+        ("ix", W_I[0]), ("bI", b_I), ("bi1", bi1), ("bh1", bh1),
+        ("bi2", bi2), ("bh2", bh2), ("bf1", bf1), ("bf2", bf2),
+        ("bf3", bf3))}
+    return mats, vecs, W_I.shape[0] - 1 - feat
 
 
 @dataclass
 class SampleLoopWeights:
-    """Sample-path weights in the kernel's layout: matrices (out, in) in
-    ``dtype`` (bf16 for the kernel), vectors float32.
+    """Sample-path weights in the TPU kernel's split layout: ``ix`` is W_I's
+    x_prev row, float32 (d,); ``wic`` acts on [mel | a1]; ``w2x``/``w2a``
+    on [x | a2], ``wf1x``/``wf1a`` on [x | a3], ``wf2x``/``wf2a`` on
+    [y | a4]. Matrices are (out, in) in ``dtype`` (bf16 for the kernel,
+    float32 for the TPU kernel's float32 verify mode); biases float32.
 
-    wI's columns are [x_prev | mel | a1] zero-padded to a multiple of 8;
-    wi2, wf1, wf2 act on the concatenations [x | a2], [x | a3], [y | a4]."""
-    wI: torch.Tensor
+    The kernel reads a copy packed for the tensor cores (``pack_mma``),
+    built by the wrapper at the first launch and kept on the object, not as
+    a field, so ``tensors()`` and ``n_bytes()`` count the weights once."""
+    ix: torch.Tensor
+    wic: torch.Tensor
     bI: torch.Tensor
     wi1: torch.Tensor
     wh1: torch.Tensor
     bi1: torch.Tensor
     bh1: torch.Tensor
-    wi2: torch.Tensor
+    w2x: torch.Tensor
+    w2a: torch.Tensor
     wh2: torch.Tensor
     bi2: torch.Tensor
     bh2: torch.Tensor
-    wf1: torch.Tensor
+    wf1x: torch.Tensor
+    wf1a: torch.Tensor
     bf1: torch.Tensor
-    wf2: torch.Tensor
+    wf2x: torch.Tensor
+    wf2a: torch.Tensor
     bf2: torch.Tensor
     wf3: torch.Tensor
     bf3: torch.Tensor
@@ -69,32 +102,24 @@ class SampleLoopWeights:
         """Build from (in, out) matrices as the flax WaveRNN stores them:
         W_I (1 + feat + adim, d), rnn1 wi/wh (d, 3d), rnn2 wi (d + adim, 3d),
         fc1 (d + adim, fc), fc2 (fc + adim, fc), fc3 (fc, n_out)."""
-        def mat(w, pad_to=None):
-            w = torch.as_tensor(w, dtype=torch.float32).T
-            if pad_to is not None and w.shape[1] < pad_to:
-                w = torch.nn.functional.pad(w, (0, pad_to - w.shape[1]))
-            return w.to(device=device, dtype=dtype).contiguous()
-
-        def vec(b):
-            return torch.as_tensor(b, dtype=torch.float32).to(device).contiguous()
-        W_I = torch.as_tensor(W_I)
-        adim = W_I.shape[0] - 1 - feat
-        return cls(mat(W_I, _round8(W_I.shape[0])), vec(b_I), mat(wi1),
-                   mat(wh1), vec(bi1), vec(bh1), mat(wi2), mat(wh2), vec(bi2),
-                   vec(bh2), mat(Wf1), vec(bf1), mat(Wf2), vec(bf2), mat(Wf3),
-                   vec(bf3), feat, adim)
+        mats, vecs, adim = _split_flax_layout(
+            W_I, b_I, wi1, wh1, bi1, bh1, wi2, wh2, bi2, bh2, Wf1, bf1, Wf2,
+            bf2, Wf3, bf3, feat)
+        parts = {k: v.T.to(dtype) for k, v in mats.items()} | vecs
+        return cls(**{k: v.to(device).contiguous() for k, v in parts.items()},
+                   feat=feat, adim=adim)
 
     @property
     def d(self) -> int:
-        return self.wh1.shape[1]
+        return self.ix.shape[0]
 
     @property
     def fc(self) -> int:
-        return self.wf2.shape[0]
+        return self.bf1.shape[0]
 
     @property
     def n_out(self) -> int:
-        return self.wf3.shape[0]
+        return self.bf3.shape[0]
 
     def tensors(self):
         return [getattr(self, f.name) for f in fields(self)
@@ -102,6 +127,39 @@ class SampleLoopWeights:
 
     def n_bytes(self) -> int:
         return sum(x.numel() * x.element_size() for x in self.tensors())
+
+    def packed(self) -> list:
+        """The eleven matrices packed by ``pack_mma``, in ``MATRICES``
+        order; built once and kept."""
+        if getattr(self, "_packed", None) is None:
+            self._packed = [pack_mma(getattr(self, k)) for k in MATRICES]
+        return self._packed
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def pack_mma(w):
+    """(M, K) -> (M16 / 16, K16 / 16, 32, 8): w zero-padded to multiples of
+    16 and cut into 16 x 16 tiles, each in the A-fragment order of
+    ``mma.m16n8k16``: lane l = 4g + t holds w[g, 2t:2t+2], w[g+8, 2t:2t+2],
+    w[g, 2t+8:2t+10], w[g+8, 2t+8:2t+10] of its tile, one 16-byte load.
+    Tiles of one m-tile are consecutive along k, so a warp streams a row of
+    tiles front to back, 512 contiguous bytes a tile."""
+    M, K = w.shape
+    w = torch.nn.functional.pad(w, (0, _round16(K) - K, 0, _round16(M) - M))
+    MT, KT = w.shape[0] // 16, w.shape[1] // 16
+    # (mt, rh, g, kt, ch, t, e): row rh * 8 + g, column ch * 8 + 2t + e
+    w = w.reshape(MT, 2, 8, KT, 2, 4, 2)
+    return w.permute(0, 3, 2, 5, 4, 1, 6).reshape(MT, KT, 32, 8).contiguous()
+
+
+def unpack_mma(p, M: int, K: int):
+    """The inverse of ``pack_mma``: (MT, KT, 32, 8) -> (M, K)."""
+    MT, KT = p.shape[:2]
+    w = p.reshape(MT, KT, 8, 4, 2, 2, 2).permute(0, 5, 2, 1, 4, 3, 6)
+    return w.reshape(MT * 16, KT * 16)[:M, :K]
 
 
 INT8_MODES = ("int8", "int8_mxu")
@@ -172,18 +230,10 @@ class Int8SampleLoopWeights:
                          device=None):
         """Quantize (in, out) float32 matrices as the flax WaveRNN stores
         them (the arguments of ``SampleLoopWeights.from_flax_layout``)."""
-        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32)
-        W_I, wi2, Wf1, Wf2 = f32(W_I), f32(wi2), f32(Wf1), f32(Wf2)
-        d, fc = W_I.shape[1], Wf2.shape[1]
-        adim = W_I.shape[0] - 1 - feat
-        parts = {k: f32(v) for k, v in (
-            ("ix", W_I[0]), ("bI", b_I), ("bi1", bi1), ("bh1", bh1),
-            ("bi2", bi2), ("bh2", bh2), ("bf1", bf1), ("bf2", bf2),
-            ("bf3", bf3))}
-        for name, w in (("wic", W_I[1:]), ("wi1", wi1), ("wh1", wh1),
-                        ("w2x", wi2[:d]), ("w2a", wi2[d:]), ("wh2", wh2),
-                        ("wf1x", Wf1[:d]), ("wf1a", Wf1[d:]),
-                        ("wf2x", Wf2[:fc]), ("wf2a", Wf2[fc:]), ("wf3", Wf3)):
+        mats, parts, adim = _split_flax_layout(
+            W_I, b_I, wi1, wh1, bi1, bh1, wi2, wh2, bi2, bh2, Wf1, bf1, Wf2,
+            bf2, Wf3, bf3, feat)
+        for name, w in mats.items():
             q, s = quantize_int8(w)
             pad = _round4(q.shape[1]) - q.shape[1]
             parts[name] = torch.nn.functional.pad(q, (0, pad))
@@ -242,32 +292,41 @@ def _gru(gi, gh, h):
     return (1.0 - z) * n + z * h
 
 
-def _float_step(cond, w: SampleLoopWeights):
-    """One step of the bf16 (or float32) weights in float32 arithmetic:
-    matrices cast up from their stored dtype, activations float32,
-    conditioning projections hoisted into batched matmuls."""
-    f = lambda x: x.float()
-    d, fc, fa, adim = w.d, w.fc, w.feat + w.adim, w.adim
-    cond = cond.float()
-    wI = f(w.wI)
-    i_s = cond[..., :fa] @ wI[:, 1:1 + fa].T + w.bI
-    gi2_s = cond[..., fa:fa + adim] @ f(w.wi2)[:, d:].T + w.bi2
-    f1_s = cond[..., fa + adim:fa + 2 * adim] @ f(w.wf1)[:, d:].T + w.bf1
-    f2_s = cond[..., fa + 2 * adim:] @ f(w.wf2)[:, fc:].T + w.bf2
-    wx, wi1, wh1 = wI[:, 0], f(w.wi1).T, f(w.wh1).T
-    wi2x, wh2 = f(w.wi2)[:, :d].T, f(w.wh2).T
-    wf1x, wf2x, wf3 = f(w.wf1)[:, :d].T, f(w.wf2)[:, :fc].T, f(w.wf3).T
+def _step_fn(cond, w, dot):
+    """One step of the TPU kernel (`wavernn_cell.py:126-165`) with the
+    product ``dot(act, name)`` of each split: x_prev . W_I[0] and the
+    biases in float32, the GRU and residuals in float32."""
+    fa, adim = w.feat + w.adim, w.adim
+    ma1, a2 = cond[..., :fa], cond[..., fa:fa + adim]
+    a3, a4 = cond[..., fa + adim:fa + 2 * adim], cond[..., fa + 2 * adim:]
 
     def step(t, x_prev, h1, h2):
-        inp = i_s[t] + x_prev[:, None] * wx
-        h1 = _gru(inp @ wi1 + w.bi1, h1 @ wh1 + w.bh1, h1)
+        inp = dot(ma1[t], "wic") + w.bI + x_prev[:, None] * w.ix
+        h1 = _gru(dot(inp, "wi1") + w.bi1, dot(h1, "wh1") + w.bh1, h1)
         x = inp + h1
-        h2 = _gru(x @ wi2x + gi2_s[t], h2 @ wh2 + w.bh2, h2)
+        h2 = _gru(dot(x, "w2x") + dot(a2[t], "w2a") + w.bi2,
+                  dot(h2, "wh2") + w.bh2, h2)
         x = x + h2
-        y = torch.relu(x @ wf1x + f1_s[t])
-        y = torch.relu(y @ wf2x + f2_s[t])
-        return y @ wf3 + w.bf3, h1, h2
+        y = torch.relu(dot(x, "wf1x") + dot(a3[t], "wf1a") + w.bf1)
+        y = torch.relu(dot(y, "wf2x") + dot(a4[t], "wf2a") + w.bf2)
+        return dot(y, "wf3") + w.bf3, h1, h2
     return step
+
+
+def _bf16_step(cond, w: SampleLoopWeights, acc=torch.float32):
+    """One step with the TPU kernel's rounding for its weight type
+    (`wavernn_cell.py:127-165`, stream type `:258`). bf16 matrices: the
+    conditioning stream is rounded to bf16 and each split product takes its
+    activation rounded to bf16, summed in ``acc``. float32 matrices (the
+    TPU kernel's float32 verify mode): ``acc`` everywhere. ``acc``
+    float64 gives the same function with exact sums, a reference that
+    neither float32 sum order is nearer to by construction."""
+    if w.wi1.dtype == torch.bfloat16:
+        rnd = lambda x: x.to(torch.bfloat16).to(acc)
+    else:
+        rnd = lambda x: x.to(acc)
+    mats = {k: getattr(w, k).to(acc).T for k in MATRICES}
+    return _step_fn(rnd(cond), w, lambda act, name: rnd(act) @ mats[name])
 
 
 def _lane_order(q):
@@ -312,13 +371,9 @@ def _int8_step(cond, w: Int8SampleLoopWeights, mxu: bool):
     else float64) times sa * s_col. Each split of a concatenated input is
     its own product; x_prev . W_I[0] and the biases stay float32."""
     d, fc, fa, adim = w.d, w.fc, w.feat + w.adim, w.adim
-    cond = cond.to(torch.bfloat16).float()
-    ma1, a2 = cond[..., :fa], cond[..., fa:fa + adim]
-    a3, a4 = cond[..., fa + adim:fa + 2 * adim], cond[..., fa + 2 * adim:]
     mats = {}
-    for name, k in (("wic", fa), ("wi1", d), ("wh1", d), ("w2x", d),
-                    ("w2a", adim), ("wh2", d), ("wf1x", d), ("wf1a", adim),
-                    ("wf2x", fc), ("wf2a", adim), ("wf3", fc)):
+    for name, k in zip(MATRICES, (fa, d, d, d, adim, d, d, adim, fc, adim,
+                                  fc)):
         q = getattr(w, name)
         if mxu:
             exact = torch.float32 if k * 127 * 127 < 2 ** 24 else torch.float64
@@ -338,17 +393,7 @@ def _int8_step(cond, w: Int8SampleLoopWeights, mxu: bool):
             return (qa.to(q.dtype) @ q).float() * sa * s
         return _kernel_order_dot(act.to(torch.bfloat16).float(), q) * s
 
-    def step(t, x_prev, h1, h2):
-        inp = dot(ma1[t], "wic") + w.bI + x_prev[:, None] * w.ix
-        h1 = _gru(dot(inp, "wi1") + w.bi1, dot(h1, "wh1") + w.bh1, h1)
-        x = inp + h1
-        h2 = _gru(dot(x, "w2x") + dot(a2[t], "w2a") + w.bi2,
-                  dot(h2, "wh2") + w.bh2, h2)
-        x = x + h2
-        y = torch.relu(dot(x, "wf1x") + dot(a3[t], "wf1a") + w.bf1)
-        y = torch.relu(dot(y, "wf2x") + dot(a4[t], "wf2a") + w.bf2)
-        return dot(y, "wf3") + w.bf3, h1, h2
-    return step
+    return _step_fn(cond.to(torch.bfloat16).float(), w, dot)
 
 
 def _sample(logits, u, mode: str, n_classes: int):
@@ -358,7 +403,10 @@ def _sample(logits, u, mode: str, n_classes: int):
     u = u.float().clamp(1e-5, 1.0 - 1e-5)
     if mode == "RAW":
         g = logits[:, :n_classes] - torch.log(-torch.log(u))
-        return 2.0 * g.argmax(-1).float() / (n_classes - 1.0) - 1.0
+        c = 2.0 * g.argmax(-1).float()
+        # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+        # its reciprocal, one ulp off the kernels' division for some classes
+        return c / torch.full_like(c, n_classes - 1.0) - 1.0
     nr = logits.shape[1] // 3
     g = logits[:, :nr] - torch.log(-torch.log(u[:, :nr]))
     k = g.argmax(-1, keepdim=True)
@@ -375,9 +423,10 @@ def wavernn_sample_loop_plain(cond, w, *, mode="MOL", n_classes=30,
                               noise=None, generator=None, state=None,
                               teacher=None, weight_dtype=None):
     """The plain PyTorch version of the kernel of ``weight_dtype``, with the
-    same arithmetic: float32 activations for ``SampleLoopWeights``
-    (``weight_dtype=None``), the TPU kernel's int8 rounding for
-    ``Int8SampleLoopWeights`` (``"int8"``, ``"int8_mxu"``).
+    TPU kernel's rounding: for ``SampleLoopWeights`` (``weight_dtype=None``)
+    a bf16 stream and bf16 activations before each split product when the
+    matrices are bf16, float32 everywhere when they are float32; for
+    ``Int8SampleLoopWeights`` (``"int8"``, ``"int8_mxu"``) its int8 modes.
 
     cond (T, B, feat + 4*adim) = [mels_up | a1 | a2 | a3 | a4]. Uniforms come
     from ``noise`` (T, B, n_draw) or ``generator``. ``teacher`` (T, B), when
@@ -389,7 +438,7 @@ def wavernn_sample_loop_plain(cond, w, *, mode="MOL", n_classes=30,
     state = init_state(B, w.d, cond.device) if state is None else state
     h1, h2, x_prev = state["h1"].clone(), state["h2"].clone(), state["x"].clone()
     nd = n_draw(mode, n_classes, w.n_out)
-    step = (_float_step(cond, w) if weight_dtype is None
+    step = (_bf16_step(cond, w) if weight_dtype is None
             else _int8_step(cond, w, weight_dtype == "int8_mxu"))
     out = torch.empty(T, B, device=cond.device)
     for t in range(T):
@@ -403,11 +452,12 @@ def wavernn_sample_loop_plain(cond, w, *, mode="MOL", n_classes=30,
 
 _COUNTER = {None: "launches", "int8": "launches_int8",
             "int8_mxu": "launches_int8_mxu"}
+# fold rows per block of the bf16 kernel (NR in the source), and its threads
+BF16_ROWS = 8
+BF16_THREADS = 512
 
 
-def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
-    lib = _build.load("wavernn_cell")
-    T, B, C = cond.shape
+def _check_tensors(cond, w, weight_dtype):
     mat_dt = torch.bfloat16 if weight_dtype is None else torch.int8
     for x in w.tensors():
         if x.device != cond.device or not x.is_contiguous():
@@ -415,6 +465,14 @@ def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
         if x.dtype != (mat_dt if x.dim() == 2 else torch.float32):
             raise TypeError(f"the kernel takes {mat_dt} matrices and float32 "
                             "vectors")
+    if weight_dtype is None and (w.d % 16 or w.fc % 16):
+        raise ValueError("the bf16 kernel needs d and fc multiples of 16")
+
+
+def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
+    T, B, C = cond.shape
+    _check_tensors(cond, w, weight_dtype)
+    lib = _build.load("wavernn_cell")
     nd = n_draw(mode, n_classes, w.n_out)
     if mode == "MOL" and w.n_out % 3:
         raise ValueError("MOL needs 3 * nr_mix outputs")
@@ -424,21 +482,26 @@ def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
         if noise.shape != (T, B, nd) or noise.dtype != torch.float32:
             raise ValueError(f"noise must be float32 (T, B, {nd})")
         noise = noise.contiguous()
-    # the bf16 kernel reads float32 conditioning; the int8 kernels read the
-    # bf16 stream of the TPU kernel (stream_dt)
-    cond = (cond.float() if weight_dtype is None
-            else cond.to(torch.bfloat16)).contiguous()
+    # every mode reads the TPU kernel's bf16 stream (stream_dt)
+    cond = cond.to(torch.bfloat16).contiguous()
     state = init_state(B, w.d, cond.device) if state is None else state
     h1 = state["h1"].float().contiguous().clone()
     h2 = state["h2"].float().contiguous().clone()
     x = state["x"].float().contiguous().clone()
     out = torch.empty(T, B, device=cond.device)
-    ptrs = _build.ptr_array([cond, *w.tensors(), h1, h2, x, noise, out])
     ints = [T, B, C, w.feat, w.adim, w.d, w.fc, w.n_out,
-            (w.wI if weight_dtype is None else w.wic).shape[1],
-            MODES.index(mode), w.n_out // 3 if mode == "MOL" else n_classes, nd]
-    if weight_dtype is not None:     # padded inner widths: d, adim, fc
+            w.wic.shape[1], MODES.index(mode),
+            w.n_out // 3 if mode == "MOL" else n_classes, nd]
+    if weight_dtype is None:
+        vecs = [w.ix, w.bI, w.bi1, w.bh1, w.bi2, w.bh2, w.bf1, w.bf2, w.bf3]
+        ptrs = _build.ptr_array([cond, *vecs, *w.packed(), h1, h2, x, noise,
+                                 out])
+        threads = BF16_THREADS
+    else:
+        ptrs = _build.ptr_array([cond, *w.tensors(), h1, h2, x, noise, out])
+        # padded inner widths: d, adim, fc
         ints += [w.wi1.shape[1], w.w2a.shape[1], w.wf2x.shape[1]]
+        threads = 1024
     suffix = "" if weight_dtype is None else "_" + weight_dtype
     fn = getattr(lib, f"wavernn_sample_loop{suffix}_launch")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
@@ -446,7 +509,7 @@ def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(ptrs, _build.int_array(ints), LOG_SCALE_MIN, state["step"],
-             seed & (2 ** 64 - 1), 1024,
+             seed & (2 ** 64 - 1), threads,
              torch.cuda.current_stream(cond.device).cuda_stream)
     _build.check(err, f"wavernn_sample_loop{suffix}")
     counter = _COUNTER[weight_dtype]
