@@ -23,9 +23,15 @@ Phases (any failure exits non-zero and prints no result line):
      exact sums' no worse than the float32 plain version's by more than
      PEAKY_MARGIN (a float32-activation control printed beside); a chunked
      run with state carry against a one-shot run, bit for bit;
-  3b. the int8 and int8_mxu sample-loop kernels against their plain versions
-     on seeded weights at flagship width, MOL and RAW 512, B in {1, 5, 11},
-     T >= 2000, shared uniforms; chunked against one-shot in both modes;
+  3b. the int8 and int8_mxu sample-loop kernels (the same tile on int8
+     weights: int8 x int8 products with activations quantized per row, or
+     int8 weights turned into bf16) against their plain versions on seeded
+     weights at flagship width, MOL and RAW 512, B in {1, 5, 11, 17}, T >=
+     2000, shared uniforms: int8_mxu (exact sums) within STEP_TOL on
+     STEP_AGREE of the steps; int8 as phase 3 holds the bf16 kernel, and
+     one step from the same state against exact sums with its own bars
+     (STATE_TOL_INT8, PEAKY_MARGIN_INT8) and control; chunked against
+     one-shot in both modes;
   4. the main path text + reference wav -> wav through TTSSynthesizer and
      VocoderSynthesizer, with both kernels' launch counts read around it;
   5. times (CUDA events), bounds, the plain versions' times, decode ms per
@@ -36,9 +42,9 @@ Phases (any failure exits non-zero and prints no result line):
   6. the serving path: TTSSynthesizer.predict_many on 8 texts, then
      VocoderSynthesizer.generate_many once per weight mode (bf16, int8,
      int8_mxu), each kernel's launches read around its call; times, the
-     batch real-time factor, and each int8 kernel alone at the serving
-     shapes and at the SM count of rows (a second wave shows as a jump),
-     held against its plain version there.
+     batch real-time factor, and each kernel alone at the serving shapes
+     and at the SM count of rows, each int8 kernel held against its plain
+     version there.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -75,10 +81,11 @@ PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
 DECODE_TOL = 5e-3          # max |mel| difference, kernel vs plain
 STEP_TOL = 1e-3            # per-step sample difference, kernel vs plain
-STEP_AGREE = 0.999         # share of steps within STEP_TOL (int8 modes)
-# the bf16 kernel sums each product inside mma in an order PyTorch cannot
-# repeat, so a one-ulp sum now and then turns an activation's bf16 rounding
-# the other way and the recurrent state carries it for some steps
+STEP_AGREE = 0.999         # share of steps within STEP_TOL (int8_mxu)
+# the bf16 and int8 kernels sum each product inside mma in an order PyTorch
+# cannot
+# repeat, so a one-ulp sum now and then turns an activation's bf16
+# rounding the other way and the recurrent state carries it for some steps
 STEP_AGREE_BF16 = 0.99
 PEAKY = 1e6                # fc3 scale that makes RAW sampling an argmax
 # h1, h2 after one step from the same state, against exact sums: a bf16
@@ -91,6 +98,13 @@ STATE_TOL = 4e-3
 # (0.9998 on the H100); leaving out the bf16 rounding of the activations
 # costs 0.006
 PEAKY_MARGIN = 0.001
+# the same two bars for the int8 kernel, whose activations round to bf16
+# as the bf16 kernel's do, each between its reading and that of its
+# float32-activation control (the dequantized weights): on the H100 the
+# state within 1.3e-3 (control 7.7e-3), the picks equal to the exact sums'
+# 1.0 as the plain version's (control 0.9972)
+STATE_TOL_INT8 = 4e-3
+PEAKY_MARGIN_INT8 = 0.001
 
 
 def card() -> str:
@@ -247,6 +261,104 @@ def interior_stop_weights(w, max_steps):
                        "frames before it")
 
 
+def dequantized(w8):
+    """float32 SampleLoopWeights with the int8 weights' values q * s: the
+    int8 kernel's function with float32 activations and no bf16 stream,
+    the control of its one-step check."""
+    import torch
+    from etts_torch.ops.kernels.wavernn_cell import (MATRICES,
+                                                     SampleLoopWeights)
+    kw = {f.name: getattr(w8, f.name)
+          for f in dataclasses.fields(SampleLoopWeights)}
+    for k in MATRICES:
+        kw[k] = getattr(w8, k).float() * getattr(w8, "s_" + k)[:, None]
+    return SampleLoopWeights(**kw)
+
+
+def one_step_check(cl, name, wk, control, exact_fn, weight_dtype, cond_all,
+                   all_b, d, state_tol, peaky_margin, failures, n_steps=200):
+    """One step at a time from the same state on peaky RAW (512 classes):
+    the kernel run one step a call (exact, as the chunked check shows) and
+    the plain versions started from the kernel's state each step, so what
+    differs is the step itself. Each is read against exact_fn(cond), the
+    plain step with exact (float64) sums and the same roundings, which
+    neither float32 sum order is nearer to by construction: the float32
+    state the kernel's step leaves (h1, h2) must be within state_tol of it.
+    The sample is an argmax, and one float32 sum ending an ulp apart can
+    turn a bf16 rounding of an activation, which now and then moves the
+    last hidden layer by more than the gap between the two largest of 512
+    logits, in either float32 version; the kernel's share of picks equal to
+    the exact sums' must be no worse than the float32 plain version's by
+    more than peaky_margin, over all B. ``control`` (the activations left
+    in float32) is run in the plain version's place beside it: both bars
+    must reject it."""
+    import torch
+    from etts_torch.ops.kernels import wavernn_cell as wcell
+    dev = cond_all.device
+    label = name
+    pooled = {"kernel": 0, "plain": 0, "control": 0}
+    control_dh = 0.0
+    for B in all_b:
+        cond = cond_all[:n_steps, :B].contiguous()
+        g = torch.Generator(dev).manual_seed(50 + B)
+        u = torch.rand(n_steps, B, 512, device=dev, generator=g)
+        kw = dict(mode="RAW", n_classes=512)
+        st = wcell.init_state(B, d, dev)
+        equal = {"kernel": 0, "plain": 0, "control": 0, "kernel-plain": 0}
+        dh = {"kernel": 0.0, "plain": 0.0, "control": 0.0}
+        for t in range(n_steps):
+            c_t, u_t = cond[t:t + 1], u[t:t + 1]
+            k, st_k = wcell.wavernn_sample_loop(c_t, wk, noise=u_t, state=st,
+                                                weight_dtype=weight_dtype,
+                                                **kw)
+            got = {"kernel": (k[0], st_k)}
+            for nm, w_, wdt in (("plain", wk, weight_dtype),
+                                ("control", control, None)):
+                o, st_o = wcell.wavernn_sample_loop_plain(
+                    c_t, w_, noise=u_t, state=st, weight_dtype=wdt, **kw)
+                got[nm] = (o[0], st_o)
+            logits, h1_r, h2_r = exact_fn(c_t)(
+                0, st["x"].double(), st["h1"].double(), st["h2"].double())
+            r = wcell._sample(logits, u_t[0], "RAW", 512)
+            for nm, (o, st_o) in got.items():
+                equal[nm] += int((o == r).sum())
+                dh[nm] = max(dh[nm],
+                             float((st_o["h1"] - h1_r).abs().max()),
+                             float((st_o["h2"] - h2_r).abs().max()))
+            equal["kernel-plain"] += int((k[0] == got["plain"][0]).sum())
+            st = st_k
+        for nm in pooled:
+            pooled[nm] += equal[nm]
+        control_dh = max(control_dh, dh["control"])
+        share = {k_: v / (n_steps * B) for k_, v in equal.items()}
+        say(cl, f"wavernn_sample_loop {label}, one step from the same state "
+                f"(seeded random weights, peaky RAW 512 classes), B={B}, "
+                f"{n_steps} steps ({-(-B // wcell.TILE_ROWS)} blocks of "
+                f"{wcell.TILE_ROWS} rows), against exact sums: h1, h2 max |d| "
+                f"kernel {dh['kernel']:.3e} (tol {state_tol}), plain "
+                f"{dh['plain']:.3e}, control {dh['control']:.3e}; share of "
+                f"picks equal: kernel {share['kernel']:.6f}, plain "
+                f"{share['plain']:.6f}, control {share['control']:.6f}; "
+                f"kernel to plain {share['kernel-plain']:.6f}")
+        if not dh["kernel"] <= state_tol:
+            failures.append(f"wavernn_sample_loop {label} one step, same "
+                            f"state (B={B})")
+    n_picks = n_steps * sum(all_b)
+    share = {k_: v / n_picks for k_, v in pooled.items()}
+    say(cl, f"wavernn_sample_loop {label} peaky RAW, {n_picks} picks one "
+            f"step from the same state: equal to exact sums' kernel "
+            f"{share['kernel']:.6f}, plain {share['plain']:.6f} (bar "
+            f"{share['plain'] - peaky_margin:.6f} = plain - {peaky_margin}), "
+            f"control {share['control']:.6f}, control state max |d| "
+            f"{control_dh:.3e}")
+    if share["kernel"] < share["plain"] - peaky_margin:
+        failures.append(f"wavernn_sample_loop {label} peaky RAW picks")
+    if (share["control"] >= share["plain"] - peaky_margin
+            or control_dh <= state_tol):
+        failures.append(f"the float32-activation control of {label} clears "
+                        "a one-step bar")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -271,10 +383,11 @@ def main() -> int:
     for name in ("decoder_step", "wavernn_cell"):
         kernel = name
         for line in _build.build_log(name).splitlines():
-            entry = re.search(r"Compiling entry function '\w*?\d+"
-                              r"(decode_loop|wavernn_\w+?)(?:IL[ib](\d+)E)?E",
-                              line)
-            # wavernn_tile<8>: NR 8; wavernn_loop_int8<1>: int8_mxu
+            entry = re.search(
+                r"Compiling entry function '\w*?\d+(decode_loop|"
+                r"wavernn_\w+?|quant_div_check_kernel)(?:IL[ib](\d+)E)?E",
+                line)
+            # wavernn_qtile<0>: int8; wavernn_qtile<1>: int8_mxu
             if entry:
                 kernel = entry[1] + (f"<{entry[2]}>" if entry[2] else "")
             if "registers" in line or "spill" in line:
@@ -307,7 +420,7 @@ def main() -> int:
     with torch.no_grad():
         ids = torch.from_numpy(tts.encode_text(SENTENCE))[None].to(dev)
         ref = m.encode_ref(torch.from_numpy(ref_mel).to(dev), tts.r)
-        enc, _ = m.encode(ids, ref, torch.from_numpy(spk).to(dev)[None, None])
+        enc = m.encode(ids, ref, torch.from_numpy(spk).to(dev)[None, None])[0]
     w = dstep.decode_weights(m, enc, tts.r, torch.bfloat16)
     P, d = w.pw1.shape[0], w.d
     gen = torch.Generator(dev).manual_seed(1)
@@ -394,7 +507,7 @@ def main() -> int:
          "MOL", 30, cond_all, (5,), False)]
 
     def tiles(B):
-        nr = wcell.BF16_ROWS
+        nr = wcell.TILE_ROWS
         return f"{nr} rows per block, {-(-B // nr)} blocks"
 
     for label, wts, mode, n_cls, c_all, rows, gate in weight_sets:
@@ -433,88 +546,17 @@ def main() -> int:
                          or not bool(torch.isfinite(k_out).all())):
                 failures.append(f"wavernn_sample_loop vs plain ({label}, "
                                 f"B={B})")
-    # one step at a time from the same state: the kernel run one step a
-    # call (exact, as the chunked check shows) and the plain versions started
-    # from the kernel's state each step, so what differs is the step itself.
-    # Each is read against the plain version with exact (float64) sums, the
-    # same function that neither float32 sum order is nearer to by
-    # construction: the float32 state the kernel's step leaves (h1, h2) must
-    # be within STATE_TOL of it. With fc3 scaled by PEAKY (peaky RAW: the
-    # sample is an argmax) one float32 sum ending an ulp apart can turn a
-    # bf16 rounding of an activation, and now and then that moves the last
-    # hidden layer by more than the gap between the two largest of 512
-    # logits, in either float32 version. The kernel's share of picks equal
-    # to the exact sums' must be no worse than the float32 plain version's
-    # by more than PEAKY_MARGIN, over all B. The float32-activation
-    # computation (the bf16 rounding left out) is the control: both bars
-    # must reject it.
+    # one step at a time from the same state, against exact sums, with the
+    # float32-activation computation (the bf16 rounding left out) as the
+    # control (one_step_check)
     peaky = dataclasses.replace(rand_raw, wf3=rand_raw.wf3 * PEAKY,
                                 bf3=torch.zeros_like(rand_raw.bf3))
     f32act = lambda w_: dataclasses.replace(w_, **{
         k: getattr(w_, k).float() for k in wcell.MATRICES})
-    peaky32 = f32act(peaky)
-
-    def exact_step(c, w_, st_, u_, mode_, n_):
-        step = wcell._bf16_step(c, w_, torch.float64)
-        logits, h1, h2 = step(0, st_["x"].double(), st_["h1"].double(),
-                              st_["h2"].double())
-        return wcell._sample(logits, u_[0], mode_, n_), h1, h2
-
-    n_steps = 200
-    pooled = {"kernel": 0, "plain": 0, "control": 0}
-    control_dh = 0.0
-    for B in all_b:
-        cond = cond_seeded[:n_steps, :B].contiguous()
-        g = torch.Generator(dev).manual_seed(50 + B)
-        u = torch.rand(n_steps, B, 512, device=dev, generator=g)
-        kw = dict(mode="RAW", n_classes=512)
-        st = wcell.init_state(B, ww.d, dev)
-        equal = {"kernel": 0, "plain": 0, "control": 0, "kernel-plain": 0}
-        dh = {"kernel": 0.0, "plain": 0.0, "control": 0.0}
-        for t in range(n_steps):
-            c_t, u_t = cond[t:t + 1], u[t:t + 1]
-            k, st_k = wcell.wavernn_sample_loop(c_t, peaky, noise=u_t,
-                                                state=st, **kw)
-            got = {"kernel": (k[0], st_k)}
-            for name, w_ in (("plain", peaky), ("control", peaky32)):
-                o, st_o = wcell.wavernn_sample_loop_plain(
-                    c_t, w_, noise=u_t, state=st, **kw)
-                got[name] = (o[0], st_o)
-            r, h1_r, h2_r = exact_step(c_t, peaky, st, u_t, "RAW", 512)
-            for name, (o, st_o) in got.items():
-                equal[name] += int((o == r).sum())
-                dh[name] = max(dh[name],
-                               float((st_o["h1"] - h1_r).abs().max()),
-                               float((st_o["h2"] - h2_r).abs().max()))
-            equal["kernel-plain"] += int((k[0] == got["plain"][0]).sum())
-            st = st_k
-        for name in pooled:
-            pooled[name] += equal[name]
-        control_dh = max(control_dh, dh["control"])
-        share = {k_: v / (n_steps * B) for k_, v in equal.items()}
-        say(cl, f"wavernn_sample_loop, one step from the same state (seeded "
-                f"random weights, peaky RAW 512 classes), B={B}, {n_steps} "
-                f"steps ({tiles(B)}), against exact sums: h1, h2 max |d| "
-                f"kernel {dh['kernel']:.3e} (tol {STATE_TOL}), plain "
-                f"{dh['plain']:.3e}, control {dh['control']:.3e}; share of "
-                f"picks equal: kernel {share['kernel']:.6f}, plain "
-                f"{share['plain']:.6f}, control {share['control']:.6f}; "
-                f"kernel to plain {share['kernel-plain']:.6f}")
-        if not dh["kernel"] <= STATE_TOL:
-            failures.append(f"wavernn_sample_loop one step, same state "
-                            f"(B={B})")
-    n_picks = n_steps * sum(all_b)
-    share = {k_: v / n_picks for k_, v in pooled.items()}
-    say(cl, f"wavernn_sample_loop peaky RAW, {n_picks} picks one step from "
-            f"the same state: equal to exact sums' kernel "
-            f"{share['kernel']:.6f}, plain {share['plain']:.6f} (bar "
-            f"{share['plain'] - PEAKY_MARGIN:.6f} = plain - {PEAKY_MARGIN}), "
-            f"control {share['control']:.6f}")
-    if share["kernel"] < share["plain"] - PEAKY_MARGIN:
-        failures.append("wavernn_sample_loop peaky RAW picks")
-    if (share["control"] >= share["plain"] - PEAKY_MARGIN
-            or control_dh <= STATE_TOL):
-        failures.append("the float32-activation control clears a one-step bar")
+    one_step_check(cl, "bf16", peaky, f32act(peaky),
+                   lambda c: wcell._bf16_step(c, peaky, torch.float64),
+                   None, cond_seeded, all_b, ww.d, STATE_TOL, PEAKY_MARGIN,
+                   failures)
     cond = cond_all[:, :5].contiguous()
     one, st1 = wcell.wavernn_sample_loop(cond, rand_mol, seed=7)
     a, st = wcell.wavernn_sample_loop(cond[:1000], rand_mol, seed=7)
@@ -531,38 +573,64 @@ def main() -> int:
     # ---- 3b. int8 sample-loop kernels vs plain ----
     # the plain version of each mode repeats the TPU kernel's rounding (bf16
     # conditioning; bf16 activations, or activations quantized per row with
-    # an exact integer product), fed the kernel's samples
+    # an exact integer product), fed the kernel's samples. int8_mxu's sums
+    # are exact in any order, so it is held to STEP_AGREE on the export's
+    # conditioning; int8 sums bf16 products in the mma's order, as the bf16
+    # kernel does, and is held as phase 3 holds that one: STEP_AGREE_BF16 on
+    # conditioning of unit scale, and one step against exact sums.
+    n_div = 1 << 32
+    t0 = time.perf_counter()
+    bad, seen = wcell.quant_div_mismatches(n_div, dev)
+    say(cl, f"int8_mxu quantizer's division against IEEE division: {bad} "
+            f"of {seen} seeded pairs differ (tol 0; "
+            f"{time.perf_counter() - t0:.2f} s)")
+    if bad or seen != n_div:
+        failures.append("the int8_mxu quantizer's division")
     q_err = {"int8": 0.0, "int8_mxu": 0.0}
+    q_sets = {"int8": (cond_seeded, STEP_AGREE_BF16, "unit-scale"),
+              "int8_mxu": (cond_all, STEP_AGREE, "the export's")}
     for label, wb, w8, mode, n_cls in (
             ("MOL", rand_mol, rand_mol8, "MOL", 30),
             ("RAW 512 classes", rand_raw, rand_raw8, "RAW", 512)):
-        for B in (1, 5, 11):
-            cond = cond_all[:, :B].contiguous()
+        for B in (1, 5, 11, 17):
             nd = wcell.n_draw(mode, n_cls, wb.n_out)
             g = torch.Generator(dev).manual_seed(100 + B)
             u = torch.rand(T, B, nd, device=dev, generator=g)
             kw = dict(mode=mode, n_classes=n_cls, noise=u)
-            b_out, _ = wcell.wavernn_sample_loop(cond, wb, **kw)
-            for wdt in q_err:
-                k_out, _ = wcell.wavernn_sample_loop(cond, w8, weight_dtype=wdt,
-                                                     **kw)
+            for wdt, (c_all, bar, c_name) in q_sets.items():
+                cond = c_all[:, :B].contiguous()
+                b_out, _ = wcell.wavernn_sample_loop(cond, wb, **kw)
+                k_out, _ = wcell.wavernn_sample_loop(cond, w8,
+                                                     weight_dtype=wdt, **kw)
                 t_out, _ = wcell.wavernn_sample_loop_plain(
                     cond, w8, teacher=k_out, weight_dtype=wdt, **kw)
                 torch.cuda.synchronize()
                 diff = (k_out - t_out).abs()
                 agree = float((diff <= STEP_TOL).float().mean())
-                q_err[wdt] = max(q_err[wdt], float(diff.max()))
+                if mode == "MOL":       # a turned RAW pick is k * 2 / 511
+                    q_err[wdt] = max(q_err[wdt], float(diff.max()))
+                mean_d = float((k_out - b_out).abs().mean())
+                inside = float((k_out.abs() < 1).float().mean())
                 say(cl, f"wavernn_sample_loop {wdt} vs plain (seeded random "
-                        f"weights, {label}), B={B} T={T}: per-step (same "
-                        f"history) max |d| {float(diff.max()):.3e}, "
-                        f"{agree:.6f} of steps within {STEP_TOL}; mean "
-                        f"|{wdt} - bf16 kernel| {float((k_out - b_out).abs().mean()):.4f} "
-                        f"(same uniforms; etts' gate on its tiny RAW test "
-                        f"is < 0.1); {float((k_out.abs() < 1).float().mean()):.4f} "
-                        f"inside (-1, 1)")
-                if agree < STEP_AGREE or not bool(torch.isfinite(k_out).all()):
+                        f"weights, {label}, {c_name} conditioning), "
+                        f"B={B} T={T} ({tiles(B)}): "
+                        f"per-step (same history) max |d| "
+                        f"{float(diff.max()):.3e}, {agree:.6f} of steps "
+                        f"within {STEP_TOL} (bar {bar}); mean |{wdt} - bf16 "
+                        f"kernel| {mean_d:.4f} (same uniforms; etts' gate on "
+                        f"its tiny RAW test is < 0.1); {inside:.4f} inside "
+                        f"(-1, 1)")
+                if agree < bar or not bool(torch.isfinite(k_out).all()):
                     failures.append(f"wavernn_sample_loop {wdt} vs plain "
                                     f"({label}, B={B})")
+    # int8, one step from the same state against exact sums; the control is
+    # the dequantized weights' function with float32 activations
+    peaky8 = dataclasses.replace(rand_raw8, s_wf3=rand_raw8.s_wf3 * PEAKY,
+                                 bf3=torch.zeros_like(rand_raw8.bf3))
+    one_step_check(cl, "int8", peaky8, dequantized(peaky8),
+                   lambda c: wcell._int8_step(c, peaky8, False, torch.float64),
+                   "int8", cond_seeded, all_b, ww.d, STATE_TOL_INT8,
+                   PEAKY_MARGIN_INT8, failures)
     cond = cond_all[:, :5].contiguous()
     for wdt in q_err:
         kw = dict(seed=7, weight_dtype=wdt)
@@ -683,6 +751,15 @@ def main() -> int:
             f"{launches['wavernn_sample_loop']}")
     say(cl, f"end to end: {e2e:.3f} s for {audio_s:.3f} s of audio, "
             f"RTF {e2e / audio_s:.4f}")
+    # the reference mel (float64 STFT on the card), host time with the copy
+    # back to the host that ends it
+    tts.mel_from_wav(wav_ref)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        tts.mel_from_wav(wav_ref)
+    ref_s = wav_ref.shape[0] / tts.config["sampling_rate"]
+    say(cl, f"reference mel of {ref_s:.1f} s of audio (float64 STFT): "
+            f"{(time.perf_counter() - t0) / 10 * 1e3:.3f} ms")
 
     # ---- 6. the serving path ----
     sr, hop = tts.config["sampling_rate"], tts.config["hop_length"]
@@ -752,6 +829,10 @@ def main() -> int:
     u = torch.rand(T, B, wcell.n_draw("MOL", 30, 30), device=dev,
                    generator=torch.Generator(dev).manual_seed(3))
     cond_sm, u_sm = cond[:, :n_sm].contiguous(), u[:, :n_sm].contiguous()
+    g = torch.Generator(dev).manual_seed(6)
+    cond_seed = torch.cat(
+        [torch.rand(T, B, ww.feat, device=dev, generator=g),
+         torch.randn(T, B, 4 * ww.adim, device=dev, generator=g)], -1)
     serve = {}
     for wdt, wts in ((None, rand_mol), ("int8", rand_mol8),
                      ("int8_mxu", rand_mol8)):
@@ -765,25 +846,38 @@ def main() -> int:
         line = (f"wavernn_sample_loop {name} at the serving shapes: "
                 f"{ms_all:.2f} ms for T={T} x B={B} ({ms_all / T * 1e3:.2f} "
                 f"us/step); bound {bnd:.4f} ms by {by}")
-        if B > n_sm:            # one block per row (int8): a second wave
+        if B > n_sm:            # rows past the SM count
             ms_sm, _ = cuda_ms(lambda: wcell.wavernn_sample_loop(
                 cond_sm, wts, noise=u_sm, weight_dtype=wdt), 1, warm=False)
-            line += (f"; {ms_sm:.2f} ms for B={n_sm}, so the {B - n_sm} "
-                     f"rows past the SM count add {ms_all - ms_sm:.2f} ms")
-        if wdt is None:
-            line += f" ({tiles(B)})"
+            serve[name]["ms_sm"] = ms_sm
+            line += (f"; {ms_sm:.2f} ms for B={n_sm} ({ms_sm / T * 1e3:.2f} "
+                     f"us/step), so the {B - n_sm} rows past the SM count "
+                     f"add {ms_all - ms_sm:.2f} ms")
+        # the same shapes on seeded conditioning of unit scale: a step
+        # time that depends on the values shows as a difference
+        ms_seed, _ = cuda_ms(lambda: wcell.wavernn_sample_loop(
+            cond_seed, wts, noise=u, weight_dtype=wdt), 1, warm=False)
+        line += (f"; {ms_seed / T * 1e3:.2f} us/step on seeded unit-scale "
+                 f"conditioning")
+        line += f" ({tiles(B)})"
         if wdt is not None:
             plain_ms, (t_out, _) = cuda_ms(
                 lambda: wcell.wavernn_sample_loop_plain(
                     cond, wts, teacher=k_out, **kw), 1, warm=False)
             diff = (k_out - t_out).abs()
             agree = float((diff <= STEP_TOL).float().mean())
-            q_err[wdt] = max(q_err[wdt], float(diff.max()))
+            # int8 on the export's conditioning: one bf16 step of an
+            # activation is large there, and a mixture pick turned at the
+            # clip is 2.0, so its error is phase 3b's (as the bf16 kernel's
+            # is phase 3's) and its bar the bf16 one
+            bar = STEP_AGREE if wdt == "int8_mxu" else STEP_AGREE_BF16
+            if wdt == "int8_mxu":
+                q_err[wdt] = max(q_err[wdt], float(diff.max()))
             serve[name]["plain"] = plain_ms
             line += (f"; plain {plain_ms:.1f} ms, per-step (same history) "
                      f"max |d| {float(diff.max()):.3e}, {agree:.6f} of steps "
-                     f"within {STEP_TOL}")
-            if agree < STEP_AGREE or not bool(torch.isfinite(k_out).all()):
+                     f"within {STEP_TOL} (bar {bar})")
+            if agree < bar or not bool(torch.isfinite(k_out).all()):
                 failures.append(f"wavernn_sample_loop {wdt} vs plain "
                                 "(serving shapes)")
         say(cl, line)

@@ -28,6 +28,14 @@ from .utils.config import (build_tts, build_vocoder, load_config,
 __all__ = ["TTSSynthesizer", "VocoderSynthesizer"]
 
 
+def _style(gst_tokens, gst_attn) -> dict:
+    """``encode``'s GST outputs as ``predict`` returns them: the dicts kept,
+    their tensors as numpy."""
+    numpy = lambda d: (None if d is None else
+                       {k: v.detach().cpu().numpy() for k, v in d.items()})
+    return {"gst_tokens": numpy(gst_tokens), "gst_attention": numpy(gst_attn)}
+
+
 def _weight_dtype(device: torch.device):
     """bf16 matrices for the kernels on the card; float32 on the CPU."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -91,8 +99,12 @@ class TTSSynthesizer:
         """Decode texts, their ids zero-padded to one length, in one batch:
         the fused kernel for one text where ``can_fuse`` allows it (as
         `etts/api.py:134` does), else ``autoregressive_predict`` with
-        per-row stop tracking. Returns (list of mels (t_i, n_mels), steps).
-        Guards left at None take the config's values; 0 turns one off."""
+        per-row stop tracking. Returns (list of mels (t_i, n_mels), steps,
+        style): ``style`` holds ``encode``'s GST outputs for ``predict``,
+        {"gst_tokens": {"GST_tokens": ...}, "gst_attention":
+        {"gst_attention": ...}} as numpy, each None without a style
+        encoder. Guards left at None take the config's values; 0 turns one
+        off."""
         asp = (self.attn_stop_patience if attn_stop_patience is None
                else (attn_stop_patience or None))
         mft = (self.max_frames_per_token if max_frames_per_token is None
@@ -106,12 +118,13 @@ class TTSSynthesizer:
         ref, spk = self._conditioning(ref_mel, spk_embed, len(seqs))
         max_steps = int(max_length) // self.r + 1
         if len(seqs) == 1 and can_fuse(m):
-            enc, _ = m.encode(inp, ref, spk)
+            enc, _, _, gst_attn, gst_tokens, *_ = m.encode(inp, ref, spk)
             w = decode_weights(m, enc, self.r, _weight_dtype(self.device))
             mel, length, steps = fused_decode(
                 w, max_steps=max_steps, prenet_dropout=self.prenet_dropout,
                 seed=seed, attn_stop_patience=asp, max_frames_per_token=mft)
-            return [mel[:length].cpu().numpy()], steps
+            return ([mel[:length].cpu().numpy()], steps,
+                    _style(gst_tokens, gst_attn))
         gen = torch.Generator(self.device).manual_seed(seed)
         out = autoregressive_predict(
             m, inp, ref, spk, r=self.r, max_length=max_length,
@@ -119,17 +132,23 @@ class TTSSynthesizer:
             max_frames_per_token=mft, generator=gen)
         mel = out["mel"].cpu().numpy()
         lengths = out["mel_lengths"].tolist()
-        return [mel[i, :n] for i, n in enumerate(lengths)], out["steps"]
+        return ([mel[i, :n] for i, n in enumerate(lengths)], out["steps"],
+                _style(out["gst_tokens"], out["gst_encoder_attention"]))
 
     def predict(self, text, ref_mel=None, spk_embed=None, max_length=1000,
                 seed: int = 0, attn_stop_patience=None,
                 max_frames_per_token=None) -> dict:
-        """-> {'mel': (t, n_mels) in [-4, 4], 'steps': decode steps run}.
-        Guards left at None take the config's values; 0 turns one off."""
-        mels, steps = self._decode([text], ref_mel, spk_embed, max_length,
-                                   seed, attn_stop_patience,
-                                   max_frames_per_token)
-        return {"mel": mels[0], "steps": steps}
+        """-> {'mel': (t, n_mels) in [-4, 4], 'steps': decode steps run,
+        'gst_tokens': {'GST_tokens': the style-token parameters},
+        'gst_attention': {'gst_attention': this reference's token-bank
+        attention (1, heads, 1, tokens)}}, as `etts/api.py:186-191`; the
+        last two None without a style encoder. Guards left at None take the
+        config's values; 0 turns one off."""
+        mels, steps, style = self._decode([text], ref_mel, spk_embed,
+                                          max_length, seed,
+                                          attn_stop_patience,
+                                          max_frames_per_token)
+        return {"mel": mels[0], "steps": steps, **style}
 
     def predict_many(self, texts, ref_mel=None, spk_embed=None,
                      max_length=1000, seed: int = 0, attn_stop_patience=None,

@@ -94,18 +94,24 @@ class AutoregressiveTransformer(nn.Module):
 
     def encode(self, inputs, ref_mel=None, spk_embed=None):
         """Text encoding concatenated with the tiled GST and/or speaker
-        embeddings (`autoregressive.py:142-172`). Returns (enc_output,
-        cross_mask); the cross mask is recomputed from the dense encoder
-        output, so it is effectively all zeros (reference quirk)."""
+        embeddings (`autoregressive.py:142-172`). Returns the tuple of
+        etts' ``encode``: (enc_output, cross_mask, text_attn, gst_attn,
+        gst_tokens, gst_output, text_enc_output), the three GST entries None
+        without a style encoder; the cross mask is recomputed from the dense
+        encoder output, so it is effectively all zeros (reference quirk)."""
         x = self.TextEmbedding(inputs)
-        parts = [self.TextEncoder(x, encoder_padding_mask(inputs))]
+        text_enc, text_attn = self.TextEncoder(x, encoder_padding_mask(inputs))
+        gst_out = gst_attn = gst_tokens = None
+        parts = [text_enc]
         n = inputs.shape[1]
         if self.has_style:
-            parts.append(self.RefEncoderGST(ref_mel).expand(-1, n, -1))
+            gst_out, gst_attn, gst_tokens = self.RefEncoderGST(ref_mel)
+            parts.append(gst_out.expand(-1, n, -1))
         if self.has_speaker:
             parts.append(spk_embed.expand(-1, n, -1))
         enc = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
-        return enc, mel_padding_mask(enc)
+        return (enc, mel_padding_mask(enc), text_attn, gst_attn, gst_tokens,
+                gst_out, text_enc)
 
     @staticmethod
     def encode_ref(ref_mel, r: int):
@@ -164,7 +170,8 @@ def autoregressive_predict(model: AutoregressiveTransformer, inputs,
     focus has sat on the final real token for N steps;
     ``max_frames_per_token=F`` caps each utterance at F frames per real
     token. Returns {'mel' (b, max_steps*r, mel), 'mel_lengths' (b,),
-    'mel_length', 'steps'}."""
+    'mel_length', 'steps', 'text_encoder_attention', 'gst_encoder_attention',
+    'gst_tokens'}, the last three from ``encode``."""
     b = inputs.shape[0]
     dev = inputs.device
     max_steps = int(max_length) // r + 1
@@ -172,7 +179,8 @@ def autoregressive_predict(model: AutoregressiveTransformer, inputs,
     mel_ch = model.mel_channels
     W = model.postnet_conv_layers * (model.postnet_kernel_size - 1) + r
 
-    enc, cross_mask = model.encode(inputs, ref_mel, spk_embed)
+    enc, cross_mask, text_attn, gst_attn, gst_tokens, *_ = model.encode(
+        inputs, ref_mel, spk_embed)
     caches = model.init_caches(enc, max_steps)
     lin_buf = enc.new_zeros(b, W + max_steps * r, mel_ch)
     out_buf = enc.new_zeros(b, max_steps * r, mel_ch)
@@ -215,4 +223,6 @@ def autoregressive_predict(model: AutoregressiveTransformer, inputs,
         last = final_r[:, -1:]
         i += 1
     return {"mel": out_buf, "mel_lengths": lengths,
-            "mel_length": int(lengths.max()), "steps": i}
+            "mel_length": int(lengths.max()), "steps": i,
+            "text_encoder_attention": text_attn,
+            "gst_encoder_attention": gst_attn, "gst_tokens": gst_tokens}

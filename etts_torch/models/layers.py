@@ -108,8 +108,9 @@ class SelfAttentionResNorm(nn.Module):
         self.last_ln = nn.LayerNorm(model_dim, eps=LN_EPS)
 
     def forward(self, x, mask, cache=None, cache_index=None):
-        attn, _ = self.mha(x, x, x, mask, cache=cache, cache_index=cache_index)
-        return self.last_ln(self.ln(attn) + x)
+        """-> (output, attention weights (b, h, tq, tk))."""
+        attn, w = self.mha(x, x, x, mask, cache=cache, cache_index=cache_index)
+        return self.last_ln(self.ln(attn) + x), w
 
 
 class CrossAttentionResnorm(nn.Module):
@@ -130,7 +131,8 @@ class SelfAttentionDenseBlock(nn.Module):
         self.ffn = FFNResNorm(model_dim, hidden)
 
     def forward(self, x, mask):
-        return self.ffn(self.sarn(x, mask))
+        x, w = self.sarn(x, mask)
+        return self.ffn(x), w
 
 
 class CrossAttentionDenseBlock(nn.Module):
@@ -143,7 +145,7 @@ class CrossAttentionDenseBlock(nn.Module):
 
     def forward(self, x, enc, self_mask, cross_mask, cache=None,
                 cache_index=None):
-        x = self.sarn(x, self_mask, cache, cache_index)
+        x, _ = self.sarn(x, self_mask, cache, cache_index)
         kv = None if cache is None else (cache["ck"], cache["cv"])
         x, w = self.carn(x, enc, cross_mask, kv)
         return self.ffn(x), w
@@ -158,7 +160,9 @@ def _check_all_dense(num_heads: Sequence[int], dense_blocks: int):
 
 class SelfAttentionBlocks(nn.Module):
     """Encoder stack with sqrt(d)-scaled, positionally encoded input
-    (`layers.py:253-304`)."""
+    (`layers.py:253-304`), as the text encoder. Returns (x, {f"TextEncoder_
+    DenseBlock{i}_SelfAttention": each block's attention weights (b, h, t,
+    t)}), etts' keys for it."""
 
     def __init__(self, model_dim: int, hidden: int, num_heads: Sequence[int],
                  max_position: int, dense_blocks: int):
@@ -174,9 +178,11 @@ class SelfAttentionBlocks(nn.Module):
 
     def forward(self, x, padding_mask):
         x = x * (self.model_dim ** 0.5) + self.pos_encoding[:x.shape[1]]
+        weights = {}
         for i in range(self.n_blocks):
-            x = getattr(self, f"SADB_{i}")(x, padding_mask)
-        return x
+            x, w = getattr(self, f"SADB_{i}")(x, padding_mask)
+            weights[f"TextEncoder_DenseBlock{i + 1}_SelfAttention"] = w
+        return x, weights
 
 
 class CrossAttentionBlocks(nn.Module):
@@ -305,7 +311,10 @@ class ReferenceEncoderGST(nn.Module):
         return total // 2, total - total // 2
 
     def forward(self, mel):
-        """mel (b, t, n_mels) -> style embedding (b, 1, gst_style_embed_dim)."""
+        """mel (b, t, n_mels) -> (style embedding (b, 1, gst_style_embed_dim),
+        {"gst_attention": the token-bank attention (b, heads, 1, gst_heads)},
+        {"GST_tokens": the token parameters (gst_heads, depth)}), as
+        `layers.py:569` returns them."""
         b = mel.shape[0]
         x = mel[:, None]                       # (b, 1, t, mel)
         for i in range(self.n_conv):
@@ -316,5 +325,5 @@ class ReferenceEncoderGST(nn.Module):
         _, h = gru_scan(self.gru_wi, self.gru_wh, self.gru_bi, self.gru_bh, x)
         ref = torch.tanh(self.rnn_proj(h))[:, None]
         bank = torch.tanh(self.gst_tokens)[None].expand(b, -1, -1)
-        out, _ = self.mha(bank, bank, ref)
-        return out
+        out, attn = self.mha(bank, bank, ref)
+        return out, {"gst_attention": attn}, {"GST_tokens": self.gst_tokens}

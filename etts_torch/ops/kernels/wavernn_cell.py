@@ -10,12 +10,15 @@ quantized per row on the fly (``"int8_mxu"``).
 Bound on the H100: every step's dependent products read the ~3.8 M
 sample-path weights again (7.65 MB in bf16, 3.8 MB in int8 at flagship
 width), so the step time is a weight read from L2; the arithmetic is small.
-bf16 design: one persistent block per tile of ``BF16_ROWS`` fold rows runs
+bf16 design: one persistent block per tile of ``TILE_ROWS`` fold rows runs
 all T steps in one launch, every product on the tensor cores (``mma.sync``
 m16n8k16) with the weights packed once into A-fragment tiles
-(``pack_mma``), and the TPU kernel's bf16 rounding. int8 designs: one
-block per fold row, matrix-vector products on CUDA cores (see the note in
-the source).
+(``pack_mma``), and the TPU kernel's bf16 rounding. int8 designs: the
+same tile on int8 weights packed once into 16 x 32 tiles
+(``pack_mma_int8``): ``int8_mxu`` quantizes the activations per row and
+multiplies on ``mma.sync`` m16n8k32 s8 with exact int32 sums, ``int8``
+turns the weights into bf16 in registers and multiplies on m16n8k16 (see
+the note in the source).
 
 ``wavernn_sample_loop`` launches the mode's kernel for CUDA tensors and runs
 the mode's plain version for CPU tensors; it never falls back from one to the
@@ -140,6 +143,10 @@ def _round16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
+def _round32(n: int) -> int:
+    return (n + 31) // 32 * 32
+
+
 def pack_mma(w):
     """(M, K) -> (M16 / 16, K16 / 16, 32, 8): w zero-padded to multiples of
     16 and cut into 16 x 16 tiles, each in the A-fragment order of
@@ -162,11 +169,30 @@ def unpack_mma(p, M: int, K: int):
     return w.reshape(MT * 16, KT * 16)[:M, :K]
 
 
+def pack_mma_int8(q):
+    """(M, K) int8 -> (M16 / 16, K32 / 32, 32, 16): q zero-padded to
+    multiples of 16 rows and 32 columns and cut into 16 x 32 tiles, each in
+    the A-fragment order of ``mma.m16n8k32`` s8: lane l = 4g + t holds
+    q[g, 4t:4t+4], q[g+8, 4t:4t+4], q[g, 16+4t:20+4t], q[g+8, 16+4t:20+4t]
+    of its tile, one 16-byte load. Tiles of one m-tile are consecutive along
+    k. The int8 kernel reads the same tiles as two bf16 fragments of
+    ``mma.m16n8k16`` (see ``qstream`` in the source)."""
+    M, K = q.shape
+    q = torch.nn.functional.pad(q, (0, _round32(K) - K, 0, _round16(M) - M))
+    MT, KT = q.shape[0] // 16, q.shape[1] // 32
+    # (mt, rh, g, kt, ch, t, e): row rh * 8 + g, column ch * 16 + 4t + e
+    q = q.reshape(MT, 2, 8, KT, 2, 4, 4)
+    return q.permute(0, 3, 2, 5, 4, 1, 6).reshape(MT, KT, 32, 16).contiguous()
+
+
+def unpack_mma_int8(p, M: int, K: int):
+    """The inverse of ``pack_mma_int8``: (MT, KT, 32, 16) -> (M, K)."""
+    MT, KT = p.shape[:2]
+    q = p.reshape(MT, KT, 8, 4, 2, 2, 4).permute(0, 5, 2, 1, 4, 3, 6)
+    return q.reshape(MT * 16, KT * 32)[:M, :K]
+
+
 INT8_MODES = ("int8", "int8_mxu")
-
-
-def _round4(n: int) -> int:
-    return (n + 3) // 4 * 4
 
 
 def quantize_int8(w):
@@ -187,9 +213,12 @@ class Int8SampleLoopWeights:
     quantized on its own, with its own scale row, as the TPU kernel does:
     ``wic`` acts on [mel | a1] (the x_prev row of W_I stays float32 in
     ``ix``), ``w2x``/``w2a`` on [x | a2], ``wf1x``/``wf1a`` on [x | a3],
-    ``wf2x``/``wf2a`` on [y | a4]. Matrices are (out, in) int8 with the
-    inner dimension zero-padded to a multiple of 4; ``s_*`` are the eleven
-    (out,) float32 scale rows; biases float32."""
+    ``wf2x``/``wf2a`` on [y | a4]. Matrices are (out, in) int8; ``s_*``
+    are the eleven (out,) float32 scale rows; biases float32.
+
+    The kernels read a copy packed for the tensor cores
+    (``pack_mma_int8``), built at the first launch and kept on the object,
+    as ``SampleLoopWeights.packed``."""
     ix: torch.Tensor
     wic: torch.Tensor
     s_wic: torch.Tensor
@@ -234,10 +263,7 @@ class Int8SampleLoopWeights:
             W_I, b_I, wi1, wh1, bi1, bh1, wi2, wh2, bi2, bh2, Wf1, bf1, Wf2,
             bf2, Wf3, bf3, feat)
         for name, w in mats.items():
-            q, s = quantize_int8(w)
-            pad = _round4(q.shape[1]) - q.shape[1]
-            parts[name] = torch.nn.functional.pad(q, (0, pad))
-            parts["s_" + name] = s
+            parts[name], parts["s_" + name] = quantize_int8(w)
         return cls(**{k: v.to(device).contiguous() for k, v in parts.items()},
                    feat=feat, adim=adim)
 
@@ -255,6 +281,13 @@ class Int8SampleLoopWeights:
 
     tensors = SampleLoopWeights.tensors
     n_bytes = SampleLoopWeights.n_bytes
+
+    def packed(self) -> list:
+        """The eleven matrices packed by ``pack_mma_int8``, in ``MATRICES``
+        order; built once and kept."""
+        if getattr(self, "_packed", None) is None:
+            self._packed = [pack_mma_int8(getattr(self, k)) for k in MATRICES]
+        return self._packed
 
 
 def n_draw(mode: str, n_classes: int, n_out: int) -> int:
@@ -329,57 +362,28 @@ def _bf16_step(cond, w: SampleLoopWeights, acc=torch.float32):
     return _step_fn(rnd(cond), w, lambda act, name: rnd(act) @ mats[name])
 
 
-def _lane_order(q):
-    """(out, k) int8 -> (n_it, step, out, 32) float32: the elements each
-    lane of a warp meets in the int8 kernel's product (``qpart``), lane l
-    of iteration ``it`` reading `step` consecutive ones from (it * 32 + l) *
-    step, step 16 where k is a multiple of 16, else 4; zero past k."""
-    out, k = q.shape
-    step = 16 if k % 16 == 0 else 4
-    n_it = -(-k // (32 * step))
-    q = torch.nn.functional.pad(q.float(), (0, n_it * 32 * step - k))
-    return q.reshape(out, n_it, 32, step).permute(1, 3, 0, 2).contiguous()
-
-
-def _kernel_order_dot(act, q):
-    """sum_i act[:, i] * q[o, i] in float32 in the int8 kernel's order: each
-    lane adds its products one by one (each exact: bf16 times int8), then
-    the warp adds the 32 lane sums as a butterfly (``warp_sum``). With the
-    same order both sides round the same sums, so no activation's bf16
-    rounding goes the other way and spreads through the recurrence."""
-    n_it, step, out, _ = q.shape
-    a = torch.nn.functional.pad(act, (0, n_it * 32 * step - act.shape[-1]))
-    a = a.reshape(-1, n_it, 32, step)
-    acc = act.new_zeros(a.shape[0], out, 32)
-    for it in range(n_it):
-        for j in range(step):
-            acc = acc + a[:, None, it, :, j] * q[it, j]
-    for off in (16, 8, 4, 2, 1):
-        acc = acc[..., :off] + acc[..., off:2 * off]
-    return acc[..., 0]
-
-
-def _int8_step(cond, w: Int8SampleLoopWeights, mxu: bool):
+def _int8_step(cond, w: Int8SampleLoopWeights, mxu: bool,
+               acc=torch.float32):
     """One step of the int8 weights with the TPU kernel's rounding
     (`wavernn_cell.py:80-106, 126-165`): the conditioning stream is rounded
     to bf16; ``int8`` rounds each product's activation to bf16 and computes
-    (act . q) * s_col in float32, summed in the kernel's order;
-    ``int8_mxu`` quantizes each activation row on its own, sa =
-    max(max|act|, 1e-9) / 127, qa = round_half_even(act / sa) clipped to
-    +-127, and computes the integer sum (qa . q) exactly (float32 while
-    k * 127^2 < 2^24, where every partial sum is an integer float32 holds,
-    else float64) times sa * s_col. Each split of a concatenated input is
-    its own product; x_prev . W_I[0] and the biases stay float32."""
-    d, fc, fa, adim = w.d, w.fc, w.feat + w.adim, w.adim
+    (act . q) * s_col, summed in ``acc`` (float64 gives exact sums, as
+    ``_bf16_step`` does for the bf16 weights); ``int8_mxu`` quantizes each
+    activation row on its own, sa = max(max|act|, 1e-9) / 127, qa =
+    round_half_even(act / sa) clipped to +-127, and computes the integer
+    sum (qa . q) exactly (float32 while k * 127^2 < 2^24, where every
+    partial sum is an integer float32 holds, else float64) times sa *
+    s_col, in float32 whatever ``acc``. Each split of a concatenated input
+    is its own product; x_prev . W_I[0] and the biases stay float32."""
     mats = {}
-    for name, k in zip(MATRICES, (fa, d, d, d, adim, d, d, adim, fc, adim,
-                                  fc)):
+    for name in MATRICES:
         q = getattr(w, name)
         if mxu:
-            exact = torch.float32 if k * 127 * 127 < 2 ** 24 else torch.float64
-            q = q[:, :k].to(exact).T
+            exact = (torch.float32 if q.shape[1] * 127 * 127 < 2 ** 24
+                     else torch.float64)
+            q = q.to(exact).T
         else:
-            q = _lane_order(q)
+            q = q.to(acc).T
         mats[name] = (q, getattr(w, "s_" + name))
 
     def dot(act, name):
@@ -391,9 +395,10 @@ def _int8_step(cond, w: Int8SampleLoopWeights, mxu: bool):
             sa = m / torch.full_like(m, 127.0)
             qa = torch.clamp(torch.round(act / sa), -127.0, 127.0)
             return (qa.to(q.dtype) @ q).float() * sa * s
-        return _kernel_order_dot(act.to(torch.bfloat16).float(), q) * s
+        return (act.to(torch.bfloat16).to(acc) @ q) * s
 
-    return _step_fn(cond.to(torch.bfloat16).float(), w, dot)
+    stream = cond.to(torch.bfloat16)
+    return _step_fn(stream.float() if mxu else stream.to(acc), w, dot)
 
 
 def _sample(logits, u, mode: str, n_classes: int):
@@ -452,9 +457,9 @@ def wavernn_sample_loop_plain(cond, w, *, mode="MOL", n_classes=30,
 
 _COUNTER = {None: "launches", "int8": "launches_int8",
             "int8_mxu": "launches_int8_mxu"}
-# fold rows per block of the bf16 kernel (NR in the source), and its threads
-BF16_ROWS = 8
-BF16_THREADS = 512
+# fold rows per block of the kernels (NR in the source), and their threads
+TILE_ROWS = 8
+TILE_THREADS = 512
 
 
 def _check_tensors(cond, w, weight_dtype):
@@ -467,6 +472,8 @@ def _check_tensors(cond, w, weight_dtype):
                             "vectors")
     if weight_dtype is None and (w.d % 16 or w.fc % 16):
         raise ValueError("the bf16 kernel needs d and fc multiples of 16")
+    if weight_dtype is not None and (w.d % 32 or w.fc % 32):
+        raise ValueError("the int8 kernels need d and fc multiples of 32")
 
 
 def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
@@ -492,16 +499,11 @@ def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
     ints = [T, B, C, w.feat, w.adim, w.d, w.fc, w.n_out,
             w.wic.shape[1], MODES.index(mode),
             w.n_out // 3 if mode == "MOL" else n_classes, nd]
-    if weight_dtype is None:
-        vecs = [w.ix, w.bI, w.bi1, w.bh1, w.bi2, w.bh2, w.bf1, w.bf2, w.bf3]
-        ptrs = _build.ptr_array([cond, *vecs, *w.packed(), h1, h2, x, noise,
-                                 out])
-        threads = BF16_THREADS
-    else:
-        ptrs = _build.ptr_array([cond, *w.tensors(), h1, h2, x, noise, out])
-        # padded inner widths: d, adim, fc
-        ints += [w.wi1.shape[1], w.w2a.shape[1], w.wf2x.shape[1]]
-        threads = 1024
+    vecs = [w.ix, w.bI, w.bi1, w.bh1, w.bi2, w.bh2, w.bf1, w.bf2, w.bf3]
+    scales = ([] if weight_dtype is None
+              else [getattr(w, "s_" + k) for k in MATRICES])
+    ptrs = _build.ptr_array([cond, *vecs, *w.packed(), *scales, h1, h2, x,
+                             noise, out])
     suffix = "" if weight_dtype is None else "_" + weight_dtype
     fn = getattr(lib, f"wavernn_sample_loop{suffix}_launch")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
@@ -509,13 +511,29 @@ def _launch(cond, w, mode, n_classes, noise, seed, state, weight_dtype):
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(ptrs, _build.int_array(ints), LOG_SCALE_MIN, state["step"],
-             seed & (2 ** 64 - 1), threads,
+             seed & (2 ** 64 - 1), TILE_THREADS,
              torch.cuda.current_stream(cond.device).cuda_stream)
     _build.check(err, f"wavernn_sample_loop{suffix}")
     counter = _COUNTER[weight_dtype]
     setattr(wavernn_sample_loop, counter,
             getattr(wavernn_sample_loop, counter) + 1)
     return out, {"h1": h1, "h2": h2, "x": x, "step": state["step"] + T}
+
+
+def quant_div_mismatches(n: int, device) -> tuple:
+    """On the card: of n seeded pairs (a, b) from the int8_mxu quantizer's
+    domain, how many the kernel's division (``quant_div`` in the source)
+    rounds otherwise than IEEE division, and how many it checked."""
+    lib = _build.load("wavernn_cell")
+    cnt = torch.zeros(2, dtype=torch.int64, device=device)
+    fn = lib.quant_div_check
+    fn.argtypes = [ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(n, cnt.data_ptr(),
+                    torch.cuda.current_stream(cnt.device).cuda_stream),
+                 "quant_div_check")
+    bad, seen = cnt.tolist()
+    return bad, seen
 
 
 def wavernn_sample_loop(cond, w, *, mode="MOL", n_classes=30, noise=None,

@@ -28,8 +28,9 @@ def workspace(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_mel(workspace):
-    """(reference mel, predicted mel) of the etts chain, computed once."""
+def jax_out(workspace):
+    """(reference mel, autoregressive_predict's outputs) of the etts chain,
+    computed once."""
     ws = workspace
     cm, model, variables = ws["autoregressive"]
     ref_mel = np.asarray(AudioProcessor(cm.config).mel_spectrogram(
@@ -40,6 +41,13 @@ def jax_mel(workspace):
         JM.encode_ref(jnp.asarray(ref_mel), 2),
         jnp.asarray(ws["spk"]).reshape(1, 1, -1), r=2, max_length=20,
         key=jax.random.PRNGKey(0), prenet_dropout=0.0)
+    return ref_mel, out
+
+
+@pytest.fixture(scope="module")
+def jax_mel(jax_out):
+    """(reference mel, predicted mel) of the etts chain."""
+    ref_mel, out = jax_out
     return ref_mel, np.asarray(out["mel"][0][:int(out["mel_length"])])
 
 
@@ -53,6 +61,27 @@ def test_text_and_ref_wav_to_mel(workspace, jax_mel):
     mel = tts.predict(TEXT, got_ref, workspace["spk"], max_length=20)["mel"]
     assert mel.shape == want.shape
     np.testing.assert_allclose(mel, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("path", ["fused", "plain"])
+def test_predict_style_outputs(workspace, jax_out, path, monkeypatch):
+    """predict returns etts' gst_tokens and gst_attention
+    (`etts/api.py:186-191`) on the fused decode and on the plain one, from
+    the same reference mel: deterministic, before any feedback, so 1e-5."""
+    tts = TTSSynthesizer(workspace["dir"],
+                         workspace["dir"] / "autoregressive.npz", "cpu")
+    if path == "plain":
+        monkeypatch.setattr("etts_torch.api.can_fuse", lambda m: False)
+    ref_mel, want = jax_out
+    got = tts.predict(TEXT, np.array(ref_mel), workspace["spk"], max_length=20)
+    for key, wkey in (("gst_tokens", "gst_tokens"),
+                      ("gst_attention", "gst_encoder_attention")):
+        assert sorted(got[key]) == sorted(want[wkey])
+        for k, v in want[wkey].items():
+            assert isinstance(got[key][k], np.ndarray)
+            np.testing.assert_allclose(got[key][k], np.asarray(v), atol=1e-5)
+    np.testing.assert_allclose(got["mel"], np.asarray(
+        want["mel"][0][:int(want["mel_length"])]), atol=1e-4)
 
 
 def test_mel_to_wav(workspace, jax_mel):

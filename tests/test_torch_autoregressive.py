@@ -1,6 +1,9 @@
 """AutoregressiveTransformer inference of the port against flax, float32:
 encode for all four system types, decode_step, and autoregressive_predict
-with its stop rules. Tolerance 1e-4 (float32 reduction order)."""
+with its stop rules, and the style outputs of encode and
+autoregressive_predict. Tolerance 1e-4 (float32 reduction order); 1e-5 for
+the style outputs (attention weights and token parameters, which no
+feedback loop amplifies)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,9 @@ from etts_torch.convert import load_into
 from torch_parity import SPK_DIM, ar_pair, flatten, t
 
 ATOL = 1e-4
+# the style outputs: attention weights and token parameters, computed before
+# any feedback loop
+STYLE_ATOL = 1e-5
 SYSTEMS = ["text", "style_text", "speaker_text", "speaker_style_text"]
 
 
@@ -37,10 +43,54 @@ def test_encode(system_type):
         v, jnp.asarray(ids), None if ref is None else jnp.asarray(ref),
         None if spk is None else jnp.asarray(spk), method=JM.encode)
     with torch.no_grad():
-        got, mask = tm.encode(t(ids).long(), None if ref is None else t(ref),
-                              None if spk is None else t(spk))
+        got, mask, *_ = tm.encode(t(ids).long(),
+                                  None if ref is None else t(ref),
+                                  None if spk is None else t(spk))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     np.testing.assert_array_equal(mask.numpy(), np.asarray(want_mask))
+
+
+def _close(got, want, what):
+    """A tensor, a dict of tensors (the same keys) or None on both sides."""
+    if want is None:
+        assert got is None, what
+        return
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), what
+        for k in want:
+            _close(got[k], want[k], f"{what}[{k}]")
+        return
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(got, np.asarray(want), atol=STYLE_ATOL,
+                               err_msg=what)
+
+
+ENCODE_OUTPUTS = ("enc_output", "cross_mask", "text_attn", "gst_attn",
+                  "gst_tokens", "gst_output", "text_enc_output")
+
+
+@pytest.mark.parametrize("system_type", SYSTEMS)
+def test_encode_style_outputs(system_type):
+    """encode returns etts' tuple: the text encoder's per-block attention
+    under etts' keys, the GST token-bank attention and token parameters
+    and the style embedding (None without a style encoder), and the text
+    encoding before the concatenation."""
+    jm, v, tm = ar_pair(system_type)
+    ids, ref, spk = _inputs(7)
+    ref = ref if jm.has_style else None
+    spk = spk if jm.has_speaker else None
+    want = jm.apply(v, jnp.asarray(ids),
+                    None if ref is None else jnp.asarray(ref),
+                    None if spk is None else jnp.asarray(spk),
+                    method=JM.encode)
+    with torch.no_grad():
+        got = tm.encode(t(ids).long(), None if ref is None else t(ref),
+                        None if spk is None else t(spk))
+    assert len(got) == len(want) == len(ENCODE_OUTPUTS)
+    assert sorted(got[2]) == [f"TextEncoder_DenseBlock{i}_SelfAttention"
+                              for i in range(1, 3)]
+    for name, g, w in zip(ENCODE_OUTPUTS, got, want):
+        _close(g, w, name)
 
 
 def test_encode_ref():
@@ -64,7 +114,7 @@ def test_decode_step(r):
     for entry, (ck, cv) in zip(caches, _cross_attention_kv(jm, v, enc)):
         entry["ck"], entry["cv"] = ck, cv
     with torch.no_grad():
-        tenc, tmask = tm.encode(t(ids).long(), t(ref))
+        tenc, tmask, *_ = tm.encode(t(ids).long(), t(ref))
         tcaches = tm.init_caches(tenc, 4)
     frames = np.random.default_rng(2).standard_normal((3, 2, 1, 12)) * 0.3
     for i in range(3):
@@ -113,6 +163,23 @@ def _pair_with_stop(bias):
     v = _forced_stop(v, bias)
     load_into(tm, flatten(v))
     return jm, v, tm
+
+
+def test_predict_style_outputs():
+    """autoregressive_predict returns encode's text attention, GST
+    attention and GST tokens under etts' keys."""
+    jm, v, tm = ar_pair("speaker_style_text")
+    ids, ref, spk = _inputs(8)
+    want = jpredict(jm, v, jnp.asarray(ids), jnp.asarray(ref),
+                    jnp.asarray(spk), r=2, max_length=7, prenet_dropout=0.0)
+    got = tpredict(tm, t(ids).long(), t(ref), t(spk), r=2, max_length=7,
+                   prenet_dropout=0.0)
+    for key in ("text_encoder_attention", "gst_encoder_attention",
+                "gst_tokens"):
+        _close(got[key], want[key], key)
+    assert got["gst_encoder_attention"]["gst_attention"].shape[-2:] == (1, 5)
+    np.testing.assert_allclose(got["mel"].numpy(), np.asarray(want["mel"]),
+                               atol=ATOL)
 
 
 def test_predict_stop_token():

@@ -44,7 +44,7 @@ def _jax(jm, v, ids, **kw):
 
 def _weights(tm, ids, r, dtype=torch.float32):
     with torch.no_grad():
-        enc, _ = tm.encode(t(ids).long())
+        enc = tm.encode(t(ids).long())[0]
     return decode_weights(tm, enc, r, dtype)
 
 
@@ -176,7 +176,7 @@ def test_geometry_checks():
     _, _, tm = _bf16_pair()
     assert can_fuse(tm)
     with torch.no_grad():
-        enc, _ = tm.encode(t(np.repeat(IDS, 2, 0)).long())
+        enc = tm.encode(t(np.repeat(IDS, 2, 0)).long())[0]
     with pytest.raises(ValueError, match="batch 1"):
         decode_weights(tm, enc, 1)
     _, _, mixed = ar_pair("text", decoder_num_heads=(2, 4))

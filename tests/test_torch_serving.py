@@ -9,9 +9,10 @@ the ``int8_weights`` mapping of the API.
 The peaky RAW cases compare argmax picks. Both int8 modes round (bf16 or an
 int8 step) activations that the packages compute with float32 sums in
 different orders, so where two classes' logits nearly tie the packages may
-pick differently: ``_weights(7)`` on ``_cond(1, 8)`` does so in int8, and
-``_weights(15)`` on ``_cond(16, 8)`` in int8_mxu, each for one of 96
-samples; the seeds here do not.
+pick differently: ``_weights(15)`` on ``_cond(16, 8)`` does so in int8_mxu
+for one of 96 samples (and ``_weights(7)`` on ``_cond(1, 8)`` did in int8
+while its plain version summed in the old kernel's lane order); the seeds
+here do not.
 
 Tolerances: 1e-5 for sampled values on deterministic (peaky RAW) paths; 0.02
 between the two packages' MOL samples whose scale is e^-8 (their noise
