@@ -5,14 +5,19 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels (one
-     nvcc per source, started together: the fused decode, and the sample
-     loop in its bf16, int8 and int8_mxu modes);
+     nvcc per source and variant, started together: the fused decode as
+     one cluster of blocks, its timer build and its build at the other
+     cluster size, and the sample loop in its bf16, int8 and int8_mxu
+     modes); print the decode's cluster size;
   2. fused AR decode kernel against its plain version at flagship width on
      the 14k-step export (r = 10): dropout 0, dropout 0.5 with shared
      uniforms, and three cases that must stop early, on copies of the
      weights where needed: a frame cap inside a group, the
      attention-completion stop, and the stop class first firing inside a
-     group;
+     group; and at r = 1 (the schedule's late reduction factor), 300
+     steps with dropout 0.5 and shared uniforms, a self-attention cache
+     longer than the encoder output; each case at the built cluster size
+     and at the other one;
   3. the bf16 WaveRNN sample-loop kernel (a tile of fold rows per block on
      tensor cores) against its plain version on conditioning from the
      26k-step export, B in {1, 5, 11, 16, 17, 33} (the tile edges), T >=
@@ -35,7 +40,11 @@ Phases (any failure exits non-zero and prints no result line):
   4. the main path text + reference wav -> wav through TTSSynthesizer and
      VocoderSynthesizer, with both kernels' launch counts read around it;
   5. times (CUDA events), bounds, the plain versions' times, decode ms per
-     step and the end-to-end real-time factor, each beside the card; the
+     step at r = 10 and at r = 1 (1001 steps), at the built cluster size
+     and at the other one (the two held together within DECODE_TOL), and
+     the end-to-end real-time factor, each beside
+     the card; the decode's step split phase by phase by the kernel's timer
+     build (a separate library); the
      sample loop is also held against its plain version at the main path's
      shapes there, on the run that times the plain version, with the
      float32-activation computation read as a control;
@@ -49,6 +58,7 @@ Phases (any failure exits non-zero and prints no result line):
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import dataclasses
+import itertools
 import json
 import math
 import re
@@ -138,6 +148,22 @@ def cuda_ms(fn, reps, warm=True):
 def bound(n_bytes, n_ops, peak=PEAK_BF16):
     t_b, t_o = n_bytes / PEAK_BYTES * 1e3, n_ops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def decode_bound(w, steps):
+    """The fused decode's bound for ``steps`` steps of these weights: the
+    weights read once, the positional rows read and the frames written;
+    multiply-adds per step for the prenet, blocks and FinalProj once, the
+    postnet convs and the stop head once for each of the r new frames,
+    attention over t + 1 cached rows and n_enc encoder rows."""
+    d, n_enc = w.d, w.ck.shape[1]
+    per_step = sum(x.numel() for x in (w.pw1, w.pw2, w.wqkv, w.wos, w.wqc,
+                                        w.woc, w.f1, w.f2, w.fpw))
+    per_frame = sum(x.numel() for x in (w.pc0, w.pcm, w.pcl, w.stopw))
+    n_ops = sum(2 * (per_step + w.r * per_frame)
+                + 4 * d * w.n_blocks * (t + 1 + n_enc) for t in range(steps))
+    n_bytes = w.weight_bytes() + steps * d * 4 + steps * w.r * w.mel * 4
+    return bound(n_bytes, n_ops)
 
 
 def loop_bound(w, weight_dtype, cond, noise):
@@ -378,15 +404,26 @@ def main() -> int:
     print(cl, flush=True)
     from etts_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    _build.build("decoder_step", "wavernn_cell")
+    from etts_torch.ops.kernels import decoder_step as dstep
+    # the decode is built with the faster of the two cluster sizes that an
+    # H100 takes (8, the portable most, and 16); the other is timed beside
+    sizes = {n: (f"{dstep.CLUSTER}={n}",) for n in (8, 16)}
+    _build.build("decoder_step", ("decoder_step", (dstep.TIMER,)),
+                 *[("decoder_step", x) for x in sizes.values()],
+                 "wavernn_cell")
     say(cl, f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    n_cluster = dstep.cluster_size()
+    n_alt = 8 if n_cluster == 16 else 16
+    say(cl, f"fused_decode: decode_cluster runs one cluster of {n_cluster} "
+            f"blocks (timed beside it: {n_alt})")
     for name in ("decoder_step", "wavernn_cell"):
         kernel = name
         for line in _build.build_log(name).splitlines():
             entry = re.search(
-                r"Compiling entry function '\w*?\d+(decode_loop|"
-                r"wavernn_\w+?|quant_div_check_kernel)(?:IL[ib](\d+)E)?E",
-                line)
+                r"(?:Compiling entry function|Function properties for) "
+                r"'?\w*?\d+(decode_\w+?|wavernn_\w+?|quant_div_check_kernel|"
+                r"block_mv|attend_part|attend_combine|ln_chain)"
+                r"(?:IL[ib](\d+)E)?E", line)
             # wavernn_qtile<0>: int8; wavernn_qtile<1>: int8_mxu
             if entry:
                 kernel = entry[1] + (f"<{entry[2]}>" if entry[2] else "")
@@ -396,7 +433,6 @@ def main() -> int:
     from etts_torch.api import TTSSynthesizer, VocoderSynthesizer
     from etts_torch.models.wavernn import (_clamp_mels, _conditioning_streams,
                                            fold_with_overlap)
-    from etts_torch.ops.kernels import decoder_step as dstep
     from etts_torch.ops.kernels import wavernn_cell as wcell
     import torch.nn.functional as F
 
@@ -425,7 +461,6 @@ def main() -> int:
     P, d = w.pw1.shape[0], w.d
     gen = torch.Generator(dev).manual_seed(1)
     noise = torch.rand(max_steps, P + d, device=dev, generator=gen)
-    full = max_steps * tts.r
     cap = 377                   # a frame cap that lands inside a group
     stop_w, stop_at = interior_stop_weights(w, max_steps)
     failures = []       # comparisons that failed; reported at the end
@@ -443,15 +478,29 @@ def main() -> int:
          3 * tts.r),
         (f"stop class first firing at frame {stop_at - 1}", stop_w,
          dict(prenet_dropout=0.0), stop_at))
-    for label, cw, kw, want in cases:
-        k_mel, k_len, k_steps = dstep.fused_decode(cw, max_steps=max_steps,
-                                                   **kw)
+    # r = 1: the FinalProj's first 80 rows of the same export, stop off so
+    # that all 300 steps run and the self-attention cache outgrows n_enc
+    w1 = dstep.decode_weights(m, enc, 1, torch.bfloat16)
+    steps1 = 300
+    noise1 = torch.rand(steps1, P + d, device=dev, generator=gen)
+    cases += (
+        (f"r = 1, {steps1} steps, dropout 0.5, shared uniforms", w1,
+         dict(prenet_dropout=0.5, noise=noise1, stop_enabled=False,
+              max_steps=steps1), steps1),)
+    # each case on the main build and on the other cluster size, whose
+    # times phase 5 sets beside the main build's
+    builds = ((f"{n_cluster} blocks", dstep.fused_decode),
+              (f"{n_alt} blocks",
+               lambda cw, **kw: dstep.launch_cluster(cw, n_alt, **kw)))
+    for (label, cw, kw, want), (blocks, run) in itertools.product(cases,
+                                                                  builds):
+        kw = dict(dict(max_steps=max_steps), **kw)
+        k_mel, k_len, k_steps = run(cw, **kw)
         # the same history: the plain version is fed the kernel's frames,
         # so float32 rounding cannot grow through the feedback loop
-        p_mel, p_len, p_steps = dstep.fused_decode_plain(
-            cw, max_steps=max_steps, teacher=k_mel, **kw)
-        f_mel, f_len, _ = dstep.fused_decode_plain(cw, max_steps=max_steps,
-                                                   **kw)
+        p_mel, p_len, p_steps = dstep.fused_decode_plain(cw, teacher=k_mel,
+                                                         **kw)
+        f_mel, f_len, _ = dstep.fused_decode_plain(cw, **kw)
         torch.cuda.synchronize()
         n = max(k_len, p_len)
         err = float((k_mel[:n] - p_mel[:n]).abs().max())
@@ -459,16 +508,22 @@ def main() -> int:
         free = float((k_mel[:nf] - f_mel[:nf]).abs().max())
         ok = (k_len == p_len and k_steps == p_steps and err <= DECODE_TOL
               and bool(torch.isfinite(k_mel).all()))
-        if want is not None:        # a guard case must stop, and there
+        full = kw["max_steps"] * cw.r
+        if want == full:            # must run every step
+            ok = ok and k_len == want
+        elif want is not None:      # a guard case must stop, and there
             ok = ok and k_len == want < full
-        say(cl, f"fused_decode vs plain ({label}): length {k_len} vs "
-                f"{p_len}" + (f" (want {want} < {full})" if want else "")
+        say(cl, f"fused_decode vs plain ({label}; {blocks}): length {k_len} "
+                f"vs {p_len}" + (f" (want {want}" + (f" < {full})"
+                                                     if want < full else ")")
+                                 if want else "")
                 + f", steps {k_steps} vs {p_steps}, max |dmel| "
                 f"{err:.3e} (tol {DECODE_TOL}); free-running: length "
                 f"{f_len}, max |dmel| {free:.3e}")
         if not ok:
-            failures.append(f"fused_decode vs plain ({label})")
-        dec_err = max(dec_err, err)
+            failures.append(f"fused_decode vs plain ({label}; {blocks})")
+        if run is dstep.fused_decode:
+            dec_err = max(dec_err, err)
 
     # ---- 3. sample-loop kernel vs plain ----
     # conditioning: the 26k vocoder's upsample network on the reference
@@ -678,19 +733,39 @@ def main() -> int:
     kw = dict(max_steps=max_steps, prenet_dropout=tts.prenet_dropout)
     dec_ms, _ = cuda_ms(lambda: dstep.fused_decode(w, **kw), 5)
     dec_plain_ms, _ = cuda_ms(lambda: dstep.fused_decode_plain(w, **kw), 1)
-    n_enc = w.ck.shape[1]
-    # multiply-adds per step: the prenet, blocks and FinalProj once; the
-    # postnet convs and the stop head once for each of the r new frames;
-    # attention over t + 1 cached rows and n_enc encoder rows
-    per_step = sum(x.numel() for x in (w.pw1, w.pw2, w.wqkv, w.wos, w.wqc,
-                                        w.woc, w.f1, w.f2, w.fpw))
-    per_frame = sum(x.numel() for x in (w.pc0, w.pcm, w.pcl, w.stopw))
-    dec_ops = sum(2 * (per_step + tts.r * per_frame)
-                  + 4 * d * w.n_blocks * (t + 1 + n_enc)
-                  for t in range(steps))
-    dec_bytes = (w.weight_bytes() + steps * d * 4
-                 + steps * tts.r * w.mel * 4)
-    dec_bound, dec_by = bound(dec_bytes, dec_ops)
+    dec_bound, dec_by = decode_bound(w, steps)
+    # r = 1 at the main path's max_length: 1001 steps (stop off, so all
+    # run), the late schedule's longest decode
+    kw1 = dict(max_steps=max_length + 1, prenet_dropout=tts.prenet_dropout,
+               stop_enabled=False)
+    dec1_ms, (_, _, n1) = cuda_ms(lambda: dstep.fused_decode(w1, **kw1), 2)
+    dec1_bound, dec1_by = decode_bound(w1, n1)
+    # the other cluster size, on the same inputs
+    alt_ms, (a_mel, _, _) = cuda_ms(
+        lambda: dstep.launch_cluster(w, n_alt, **kw), 5)
+    alt1_ms, _ = cuda_ms(lambda: dstep.launch_cluster(w1, n_alt, **kw1), 2)
+    m_ref, *_ = dstep.fused_decode(w, **kw)
+    alt_err = float((a_mel - m_ref).abs().max())
+    if alt_err > DECODE_TOL:
+        failures.append(f"fused_decode at {n_alt} blocks vs {n_cluster}")
+    say(cl, f"fused_decode cluster sizes: {n_cluster} blocks "
+            f"{dec_ms / steps:.4f} ms/step at r = 10, {dec1_ms / n1:.4f} at "
+            f"r = 1; {n_alt} blocks {alt_ms / steps:.4f} and "
+            f"{alt1_ms / n1:.4f}; max |dmel| between them at r = 10 "
+            f"{alt_err:.3e}")
+    # the timer build's split of a step, at r = 10 and r = 1; its cycles
+    # over its own CUDA-event time give the clock that turns them into us
+    for label, cw, ckw, untimed in (("r = 10", w, kw, dec_ms / steps),
+                                    ("r = 1", w1, kw1, dec1_ms / n1)):
+        t_ms, (split, total, n) = cuda_ms(
+            lambda: dstep.phase_split(cw, **ckw), 1)
+        mhz = total / (t_ms * 1e3)
+        say(cl, f"fused_decode timer build, {label}: {n} steps, "
+                f"{t_ms / n:.4f} ms/step (untimed build {untimed:.4f}), "
+                f"{total / n:.0f} cycles/step at {mhz:.0f} cycles/us")
+        for ph, c in split.items():
+            say(cl, f"  {ph:30s} {c / n:10.0f} cycles/step "
+                    f"{c / n / mhz:9.3f} us/step {c / total:7.2%}")
 
     # the sample loop at the main path's conditioning (folded as
     # VocoderSynthesizer.generate folds it), on the seeded sample-path
@@ -745,6 +820,9 @@ def main() -> int:
             f"({dec_ms / steps:.4f} ms/step), plain {dec_plain_ms:.1f} ms, "
             f"bound {dec_bound:.4f} ms by {dec_by}, launches "
             f"{launches['fused_decode']}")
+    say(cl, f"fused_decode at r = 1: {dec1_ms:.3f} ms per decode of "
+            f"{n1} steps ({dec1_ms / n1:.4f} ms/step), bound "
+            f"{dec1_bound:.4f} ms by {dec1_by}")
     say(cl, f"wavernn_sample_loop: {voc_ms:.2f} ms for T={T} x B={B} "
             f"({voc_ms / T * 1e3:.2f} us/step), plain {voc_plain_ms:.1f} ms, "
             f"bound {voc_bound:.4f} ms by {voc_by}, launches "

@@ -2,8 +2,10 @@
 libraries with a plain C interface, and load them with ``ctypes``.
 
 A library is built at its first use into ``build/kernels/`` at the root of
-the checkout, named by a hash of its sources, so an edited source rebuilds
-and an unchanged one loads at once. Nothing here runs at import time.
+the checkout, named by a hash of its sources and of its ``-D`` defines, so
+an edited source rebuilds and an unchanged one loads at once. A source can
+be built in several variants side by side, each with its own defines (a
+timer build, another compile-time size). Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,58 +33,70 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def _tag(defines) -> str:
+    return "".join("-" + re.sub(r"\W", "_", d) for d in defines)
+
+
+def _target(name: str, defines=()) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    h.update(repr(tuple(defines)).encode())
+    return BUILD_DIR / f"{name}{_tag(defines)}-{h.hexdigest()[:12]}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines):
     """Start nvcc for ``name`` unless its library exists; returns
     (target, process or None)."""
-    target = _target(name)
+    target = _target(name, defines)
     if target.exists():
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-           "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+           "-fPIC", "-Xptxas", "-v", *[f"-D{d}" for d in defines], "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return target, (proc, tmp)
 
 
-def _finish(name: str, target: Path, job) -> None:
+def _finish(name: str, defines, target: Path, job) -> None:
     if job is None:
         return
     proc, tmp = job
     log, _ = proc.communicate()
-    (BUILD_DIR / f"{name}.log").write_text(log)
+    (BUILD_DIR / f"{name}{_tag(defines)}.log").write_text(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {name}.cu {list(defines)}:\n"
+                           f"{log}")
     os.replace(tmp, target)
 
 
-def build(*names: str) -> None:
-    """Compile the named sources, all nvcc processes at once."""
-    jobs = [(n, *_start(n)) for n in names]
-    for n, target, job in jobs:
-        _finish(n, target, job)
+def build(*specs) -> None:
+    """Compile the named sources, all nvcc processes at once. A spec is a
+    source's name, or (name, defines) for a variant."""
+    specs = [(s, ()) if isinstance(s, str) else (s[0], tuple(s[1]))
+             for s in specs]
+    jobs = [(n, d, *_start(n, d)) for n, d in specs]
+    for n, d, target, job in jobs:
+        _finish(n, d, target, job)
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines=()) -> str:
     """nvcc's output (ptxas register and shared-memory report) of the last
-    build of ``name`` in this checkout, or '' if it was not built here."""
-    p = BUILD_DIR / f"{name}.log"
+    build of ``name`` (with ``defines``) in this checkout, or '' if it was
+    not built here."""
+    p = BUILD_DIR / f"{name}{_tag(defines)}.log"
     return p.read_text() if p.exists() else ""
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The library for ``csrc/<name>.cu``, built first if needed."""
-    build(name)
-    return ctypes.CDLL(str(_target(name)))
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The library for ``csrc/<name>.cu`` built with ``defines`` (a tuple
+    of ``NAME`` or ``NAME=value``), built first if needed."""
+    build((name, defines))
+    return ctypes.CDLL(str(_target(name, defines)))
 
 
 def check(err: int, what: str) -> None:

@@ -1,21 +1,32 @@
-"""Fused single-stream AR decode: the CUDA kernel ``csrc/decoder_step.cu`` and
-its plain PyTorch version.
+"""Fused single-stream AR decode: the CUDA kernel ``csrc/decoder_step.cu``
+(``decode_cluster``) and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``etts/ops/pallas/decoder_step.py``
 (``_fused_decode_call`` -> ``_make_kernel``, ``pallas_call`` at :464).
 Bound on the H100: each step depends on the last and reads all ~5.7 M bf16
-decoder weights (11.4 MB at flagship width) once for one query, so a step is
-a weight read. Design: one block runs the whole decode in one launch,
-streaming the L2-resident weights with f32 accumulation; the postnet takes
-its r new frames together (see the note in the source).
+decoder weights (11.4 MB at flagship width) once for one query, through a
+chain of 41 dependent phases; a step costs the weight bytes over the L2
+read rate of the SMs that stream them, plus one cluster barrier and one L2
+round trip for each phase, and the phases set it. Design: one thread-block
+cluster (a compile-time number of blocks, ``cluster_size()``) runs the whole
+decode in one launch; each block streams its 1/C of every product's weight
+rows from L2 and writes its slice of the output into every block's shared
+memory before the cluster's hardware barrier; attention is split by key
+rows and combined from partial softmaxes; activations are read from shared
+memory without bank conflicts and the postnet's frames share each weight
+read (see the note in the source). ``phase_split`` runs the kernel's timer
+build (``-DETTS_DECODE_TIMER``), which splits a step phase by phase.
 
-Geometry: batch 1, all-dense decoder blocks with a uniform head count.
+Geometry (``can_fuse``): batch 1, all-dense decoder blocks with a uniform
+head count of depth a multiple of 8, d <= 512, and every width the kernel
+reads as float4 (mel, prenet, d, FFN, postnet filters) a multiple of 4.
 ``fused_decode`` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.
 """
 from __future__ import annotations
 
 import ctypes
+import inspect
 from dataclasses import dataclass, fields
 from typing import Optional
 
@@ -25,6 +36,14 @@ import torch.nn.functional as F
 from . import _build
 
 BN_EPS = 1e-3
+# the phases of the kernel's timer build (-DETTS_DECODE_TIMER), in the
+# order of its counters; the decoder-block phases are summed over blocks
+PHASES = ("prenet", "QKV + cache write", "self-attention",
+          "self output projection + LN", "cross query + attention",
+          "cross output projection + LN", "FFN", "FinalProj", "postnet",
+          "stop head, guards, feedback")
+TIMER = "ETTS_DECODE_TIMER"
+CLUSTER = "DECODE_CLUSTER"      # -D define of the blocks in the cluster
 
 
 @dataclass
@@ -101,10 +120,22 @@ class DecodeWeights:
 
 def can_fuse(model) -> bool:
     """The kernel's geometry: all-dense decoder blocks with a uniform head
-    count and a mel of at most 128 channels."""
-    return (model.decoder_dense_blocks == len(model.decoder_num_heads)
-            and len(set(model.decoder_num_heads)) == 1
-            and model.mel_channels <= 128)
+    count whose depth is a multiple of 8 (the attention reads 16-byte
+    slices of a key row), d at most 512 (a warp holds a LayerNorm's vector
+    in registers), and the widths that it reads as float4 rows and splits
+    over the cluster in groups of 4 rows (mel, prenet, d, FFN, postnet
+    filters) multiples of 4."""
+    heads = set(model.decoder_num_heads)
+    if (model.decoder_dense_blocks != len(model.decoder_num_heads)
+            or len(heads) != 1):
+        return False
+    d = model.decoder_model_dimension
+    block = model.Decoder.blocks()[0]
+    widths = (model.mel_channels, model.DecoderPrenet.d1.out_features, d,
+              block.ffn.d1.out_features,
+              model.Postnet.conv_blocks.conv_0.out_channels)
+    return (d % (8 * heads.pop()) == 0 and d <= 512
+            and all(x % 4 == 0 for x in widths))
 
 
 @torch.no_grad()
@@ -116,7 +147,10 @@ def decode_weights(model, enc_output, r: int,
     1e-3), cross-attention K/V projected from ``enc_output`` (1, n, enc)."""
     if not can_fuse(model):
         raise ValueError("fused decode needs all-dense decoder blocks with a "
-                         "uniform head count and mel <= 128")
+                         "uniform head count of depth a multiple of 8, "
+                         "d <= 512, and "
+                         "mel, prenet, d, FFN and postnet widths that are "
+                         "multiples of 4")
     if enc_output.shape[0] != 1:
         raise ValueError("fused decode runs one utterance (batch 1)")
     if not 1 <= r <= model.max_r:
@@ -312,8 +346,9 @@ def fused_decode_plain(w: DecodeWeights, *, max_steps: int,
 
 
 def _launch(w: DecodeWeights, max_steps, prenet_dropout, noise, seed,
-            stop_enabled, attn_stop_patience, max_frames_per_token):
-    lib = _build.load("decoder_step")
+            stop_enabled, attn_stop_patience, max_frames_per_token,
+            defines=(), timer=None):
+    lib = _build.load("decoder_step", tuple(defines))
     dev = w.pw1.device
     for x in w.tensors():
         if x.device != dev or not x.is_contiguous():
@@ -346,16 +381,22 @@ def _launch(w: DecodeWeights, max_steps, prenet_dropout, noise, seed,
         max_steps, w.r, d, w.n_heads, w.mel, P, w.f1.shape[1], w.ck.shape[1],
         w.n_blocks, w.k, w.n_post, w.pc0.shape[0], w.ps.shape[1],
         w.stop_index, int(stop_enabled), patience, cap])
-    fn = lib.decode_loop_launch
+    fn = lib.decode_cluster_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_float, ctypes.c_ulonglong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    if timer is not None:
+        set_timer = lib.decode_set_timer
+        set_timer.argtypes = [ctypes.c_void_p]
+        _build.check(set_timer(timer.data_ptr()), "fused_decode timer")
     err = fn(ptrs, ints, float(prenet_dropout), w.start_value,
-             seed & (2 ** 64 - 1), 1024,
-             torch.cuda.current_stream(dev).cuda_stream)
+             seed & (2 ** 64 - 1), torch.cuda.current_stream(dev).cuda_stream)
+    if err == -1:
+        raise RuntimeError(f"fused_decode: no SM group of this card holds a "
+                           f"cluster of {lib.decode_cluster_size()} blocks")
     _build.check(err, "fused_decode")
-    fused_decode.launches += 1
+    if not defines:     # the main build's launch, not a measurement's
+        fused_decode.launches += 1
     length, steps = lens.tolist()
     return out, length, steps
 
@@ -379,3 +420,38 @@ def fused_decode(w: DecodeWeights, *, max_steps: int,
 
 
 fused_decode.launches = 0
+
+
+def cluster_size() -> int:
+    """Blocks in the kernel's cluster, a compile-time constant (the
+    library is built first if needed)."""
+    return int(_build.load("decoder_step").decode_cluster_size())
+
+
+def _measure(w: DecodeWeights, defines, timer=None, **kw):
+    """``fused_decode``'s launch, with its options and their defaults, on
+    the kernel built with extra ``-D`` ``defines``: not a launch of the main
+    build, so not counted in ``fused_decode.launches``."""
+    opts = inspect.signature(fused_decode).bind(w, **kw)
+    opts.apply_defaults()
+    if not w.pw1.is_cuda:
+        raise ValueError("a measurement build runs on CUDA weights only")
+    return _launch(**opts.arguments, defines=defines, timer=timer)
+
+
+def launch_cluster(w: DecodeWeights, blocks: int, **kw):
+    """``fused_decode`` (same options and result) on the kernel built with a
+    cluster of ``blocks`` blocks, to time and check the size not chosen."""
+    return _measure(w, (f"{CLUSTER}={blocks}",), **kw)
+
+
+def phase_split(w: DecodeWeights, **kw):
+    """One decode (``fused_decode``'s options) on the kernel's timer build:
+    thread 0 of the first block reads clock64() at each phase boundary.
+    Returns (cycles per phase summed over the steps, keyed by PHASES; the
+    kernel's total cycles; steps run)."""
+    buf = torch.zeros(len(PHASES) + 2, dtype=torch.int64,
+                      device=w.pw1.device)
+    _measure(w, (TIMER,), timer=buf, **kw)
+    c = buf.tolist()
+    return dict(zip(PHASES, c)), c[len(PHASES)], c[len(PHASES) + 1]

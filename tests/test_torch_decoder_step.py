@@ -13,9 +13,12 @@ from etts.models.autoregressive import AutoregressiveTransformer as JM
 from etts.ops.pallas.decoder_step import fused_decode as jfused
 from etts_torch.convert import load_into
 from etts_torch.models.autoregressive import autoregressive_predict
-from etts_torch.ops.kernels.decoder_step import (can_fuse, decode_weights,
+from etts_torch.ops.kernels import _build
+from etts_torch.ops.kernels.decoder_step import (CLUSTER, PHASES, TIMER,
+                                                 can_fuse, decode_weights,
                                                  fused_decode,
-                                                 fused_decode_plain)
+                                                 fused_decode_plain,
+                                                 launch_cluster, phase_split)
 from torch_parity import ar_pair, flatten, t
 
 ATOL = 5e-3
@@ -181,3 +184,61 @@ def test_geometry_checks():
         decode_weights(tm, enc, 1)
     _, _, mixed = ar_pair("text", decoder_num_heads=(2, 4))
     assert not can_fuse(mixed)
+
+
+@pytest.mark.parametrize("over", [
+    dict(mel_channels=10),                  # rows read as float4
+    dict(decoder_prenet_dimension=26),
+    dict(postnet_conv_filters=18),
+    dict(decoder_num_heads=(8, 8)),         # head depth 4: 16-byte key loads
+])
+def test_geometry_checks_cluster_kernel(over):
+    """The cluster kernel's own geometry: widths it reads as float4 and
+    splits over the blocks in groups of 4 rows, and key slices of 8 bf16.
+    The plain decode still runs such a model, as the API falls back to it
+    on geometry alone."""
+    _, _, tm = ar_pair("text", **over)
+    assert not can_fuse(tm)
+    with torch.no_grad():
+        enc = tm.encode(t(IDS).long())[0]
+    with pytest.raises(ValueError, match="multiples of 4"):
+        decode_weights(tm, enc, 1)
+
+
+def test_kernel_variants_refuse_cpu_weights():
+    """The kernel's variant and timer launches run on the card only: no
+    plain version stands in for a measurement."""
+    _, _, tm = _bf16_pair()
+    w = _weights(tm, IDS, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        launch_cluster(w, 8, max_steps=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        phase_split(w, max_steps=2)
+    assert len(PHASES) == 10
+
+
+@pytest.mark.parametrize("measure", ["cluster", "timer"])
+def test_kernel_variants_take_fused_decode_options(measure):
+    """The variant and timer launches take ``fused_decode``'s own options:
+    a name it does not have is refused before anything is built."""
+    _, _, tm = _bf16_pair()
+    w = _weights(tm, IDS, 1)
+    run = (lambda **kw: launch_cluster(w, 8, **kw)) if measure == "cluster" \
+        else (lambda **kw: phase_split(w, **kw))
+    with pytest.raises(TypeError):
+        run(max_step=2)
+    with pytest.raises(TypeError):
+        run(prenet_dropout=0.0)         # max_steps has no default
+
+
+def test_build_variants_are_separate_libraries():
+    """Each set of -D defines builds its own library (and log) beside the
+    plain build, so the timer and cluster-size variants never overwrite
+    the kernel the main path loads."""
+    plain = _build._target("decoder_step")
+    timer = _build._target("decoder_step", (TIMER,))
+    other = _build._target("decoder_step", (f"{CLUSTER}=8",))
+    assert len({plain, timer, other}) == 3
+    assert plain.parent == timer.parent == other.parent
+    assert TIMER in timer.name and "DECODE_CLUSTER_8" in other.name
+    assert _build._tag(()) == ""
