@@ -53,7 +53,20 @@ Phases (any failure exits non-zero and prints no result line):
      int8_mxu), each kernel's launches read around its call; times, the
      batch real-time factor, and each kernel alone at the serving shapes
      and at the SM count of rows, each int8 kernel held against its plain
-     version there.
+     version there;
+  7. the streamed path: TTSSynthesizer.stream (the plain chunked decode in
+     chunks of STREAM_CHUNK steps, 0.5 s of audio a vocoder chunk) with
+     bf16 weights, and with int8_weights="mxu", which runs the "int8" loop;
+     each kernel's launches read around each stream (one a vocoder chunk
+     in the mode used, none in the others, no fused decode); the streamed
+     mel against autoregressive_predict with the same seed (bit for bit),
+     each chunk's conditioning against the whole utterance's (STREAM_COND
+     relative), and the streamed samples against one launch over the
+     chunks' conditioning (bit for bit); the time to first audio (best of
+     3), each later chunk's time, the stream's real-time factor, the sample
+     loop's time a step at one row, and the plain chunked decode's time a
+     step; then Griffin-Lim (reconstruct_waveform, 32 iterations) on phase
+     4's mel.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -115,6 +128,15 @@ PEAKY_MARGIN = 0.001
 # 1.0 as the plain version's (control 0.9972)
 STATE_TOL_INT8 = 4e-3
 PEAKY_MARGIN_INT8 = 0.001
+# phase 7: decode steps a stream chunk (r = 10: 40 frames, 0.5 s of audio,
+# the chunk of bench.py's stream stage), the bf16 and int8 streams' lengths,
+# and the bar of a chunk's conditioning against the whole utterance's, as a
+# share of the chunk's largest |value| (the export's aux features reach
+# |x| 243; the two are computed at different lengths)
+STREAM_CHUNK = 4
+STREAM_MAX_LENGTH = 400
+STREAM_MAX_LENGTH_INT8 = 160
+STREAM_COND = 1e-4
 
 
 def card() -> str:
@@ -383,6 +405,178 @@ def one_step_check(cl, name, wk, control, exact_fn, weight_dtype, cond_all,
             or control_dh <= state_tol):
         failures.append(f"the float32-activation control of {label} clears "
                         "a one-step bar")
+
+
+def stream_phase(cl, tts, voc, ref_mel, spk, mel, failures):
+    """Phase 7 (see the module docstring); ``mel`` is phase 4's. Failed
+    checks are appended to ``failures``."""
+    import numpy as np
+    import torch
+    from etts_torch import streaming
+    from etts_torch.models.autoregressive import (autoregressive_predict,
+                                                  make_chunk_decoder,
+                                                  streaming_decode_init)
+    from etts_torch.models.wavernn import (_conditioning_streams,
+                                           _upsample_fold)
+    from etts_torch.ops.kernels import decoder_step as dstep
+    from etts_torch.ops.kernels import wavernn_cell as wcell
+    from etts_torch.ops.normalizers import mu_law_decode
+    dev = tts.device
+    vm, m, r = voc.model, tts.model, tts.r
+    hop, sr = vm.hop_length, tts.config["sampling_rate"]
+    frames = STREAM_CHUNK * r
+    loops = ("launches", "launches_int8", "launches_int8_mxu")
+    kw = dict(mel_chunk=STREAM_CHUNK, seed=0)
+    n_steps = None          # the bf16 stream's decode steps
+
+    def stream(flag, max_length, first_only=False):
+        """One stream from the call: (wav chunks, host seconds from the call
+        to each chunk, each kernel's launches in it)."""
+        for k in loops:
+            setattr(wcell.wavernn_sample_loop, k, 0)
+        dstep.fused_decode.launches = 0
+        chunks, times = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = tts.stream(SENTENCE, voc, ref_mel, spk, max_length=max_length,
+                         int8_weights=flag, **kw)
+        for c in gen:       # each chunk is on the host: synchronised
+            times.append(time.perf_counter() - t0)
+            chunks.append(c)
+            if first_only:
+                gen.close()
+                break
+        ran = {k: getattr(wcell.wavernn_sample_loop, k) for k in loops}
+        return chunks, times, dict(ran, fused_decode=dstep.fused_decode.launches)
+
+    stream(False, 2 * frames)               # warm-up, both weight modes
+    stream(True, 2 * frames)
+    inp, ref, spk_t = tts._stream_inputs(SENTENCE, ref_mel, spk)
+    for label, flag, max_length, counter, wdt in (
+            ("bf16", False, STREAM_MAX_LENGTH, "launches", None),
+            ("int8_weights='mxu'", "mxu", STREAM_MAX_LENGTH_INT8,
+             "launches_int8", "int8")):
+        chunks, times, ran = stream(flag, max_length)
+        firsts = [times[0]]
+        if wdt is None:     # first audio, best of 3
+            firsts += [stream(flag, max_length, True)[1][0] for _ in range(2)]
+        wav = np.concatenate(chunks)
+        audio_s = wav.shape[0] / sr
+        want = {k: 0 for k in ran} | {counter: len(chunks)}
+        if ran != want:
+            failures.append(f"stream ({label}) launches {ran}, want {want}")
+        if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0):
+            failures.append(f"stream ({label}) wav not finite or outside "
+                            "[-1, 1]")
+        gaps = np.diff(times)
+        say(cl, f"stream ({label}), mel_chunk {STREAM_CHUNK} at r = {r} "
+                f"({frames} frames, {frames * hop / sr:.2f} s a chunk), "
+                f"max_length {max_length}: {len(chunks)} chunks, "
+                f"{wav.shape[0]} samples ({audio_s:.3f} s) in "
+                f"{times[-1]:.3f} s, stream RTF {times[-1] / audio_s:.4f}; "
+                f"first audio {min(firsts):.4f} s (best of {len(firsts)}: "
+                f"{', '.join(f'{x:.4f}' for x in firsts)}); later chunks "
+                f"{', '.join(f'{x:.4f}' for x in gaps)} s; launches {ran}")
+
+        # the mel: the stream's decode against autoregressive_predict
+        mels = list(tts.stream_mels(SENTENCE, ref_mel, spk,
+                                    max_length=max_length, **kw))
+        mel_s = np.concatenate(mels)
+        with torch.no_grad():
+            out = autoregressive_predict(
+                m, inp, ref, spk_t, r=r, max_length=max_length,
+                prenet_dropout=tts.prenet_dropout,
+                generator=torch.Generator(dev).manual_seed(0))
+        mel_p = out["mel"][0, :out["mel_length"]].cpu().numpy()
+        steps_s = -(-mel_s.shape[0] // r)
+        same = mel_s.shape == mel_p.shape and steps_s == out["steps"]
+        d_mel = (float(np.abs(mel_s - mel_p).max()) if same
+                 else float("inf"))
+        say(cl, f"stream ({label}) mel vs autoregressive_predict (same "
+                f"seed): {mel_s.shape[0]} vs {mel_p.shape[0]} frames, steps "
+                f"{steps_s} vs {out['steps']}, max |dmel| {d_mel:.3e} (tol 0)")
+        if not (same and d_mel == 0.0) or mel_s.shape[0] * hop != wav.shape[0]:
+            failures.append(f"stream ({label}) mel")
+        n_steps = n_steps or steps_s
+
+        # each chunk's conditioning against the whole utterance's, and the
+        # streamed samples against one launch over the chunks' conditioning
+        vmels = [(x + 4.0) / 8.0 for x in mels]
+        weights = voc._loop_args(flag)["weights"]
+        with torch.no_grad():
+            full = _conditioning_streams(*_upsample_fold(
+                vm, torch.from_numpy(np.concatenate(vmels)).to(dev)[None],
+                False, 0, 0))
+            conds, off, d_cond = [], 0, 0.0
+            for ctx, n in streaming._chunk_contexts(vmels, frames, vm.pad,
+                                                    vm.feat_dims, dev):
+                c = streaming._chunk_cond(vm, ctx)
+                conds.append(c[:n * hop])      # what the stream's loop ran
+                a, b = c[:n * hop], full[off:off + n * hop]
+                d_cond = max(d_cond, float((a - b).abs().max()
+                                           / b.abs().max()))
+                off += n * hop
+        one, _ = wcell.wavernn_sample_loop(
+            torch.cat(conds), weights, mode=vm.mode, n_classes=vm.n_classes,
+            seed=1, weight_dtype=wdt)
+        one = one[:off, 0]
+        if voc._pick(None, "mu_law", True) and vm.mode == "RAW":
+            one = mu_law_decode(one, vm.n_classes, from_labels=False)
+        one = one.cpu().numpy()
+        d_wav = (float(np.abs(wav - one).max()) if one.shape == wav.shape
+                 else float("inf"))
+        say(cl, f"stream ({label}) conditioning: {len(conds)} chunks against "
+                f"the whole utterance's, max |d| / chunk max {d_cond:.3e} "
+                f"(tol {STREAM_COND}); samples against one launch over the "
+                f"chunks' conditioning (seed 1): max |d| {d_wav:.3e} (tol 0)")
+        if not d_cond <= STREAM_COND:
+            failures.append(f"stream ({label}) conditioning")
+        if d_wav != 0.0:
+            failures.append(f"stream ({label}) state carry")
+
+        # the sample loop alone at one row on an interior chunk's
+        # conditioning
+        c = conds[min(1, len(conds) - 1)]
+        ms, _ = cuda_ms(lambda: wcell.wavernn_sample_loop(
+            c, weights, mode=vm.mode, n_classes=vm.n_classes, seed=1,
+            state=wcell.init_state(1, vm.rnn_dims, dev), weight_dtype=wdt), 3)
+        say(cl, f"wavernn_sample_loop {wdt or 'bf16'} at one row (B = 1), "
+                f"a stream chunk of T = {c.shape[0]}: {ms:.3f} ms "
+                f"({ms / c.shape[0] * 1e3:.2f} us/step; real time at {sr} Hz "
+                f"needs at most {1e6 / sr:.1f})")
+
+    # the plain chunked decode's time a step (host clock, synchronised),
+    # the encode and carry built before the clock starts
+    with torch.no_grad():
+        st = streaming_decode_init(m, inp, ref, spk_t, r=r,
+                                   max_length=STREAM_MAX_LENGTH,
+                                   generator=torch.Generator(dev))
+        dec = make_chunk_decoder(m, chunk=STREAM_CHUNK, r=r,
+                                 prenet_dropout=tts.prenet_dropout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while st["i"] < n_steps:        # steps past max_steps cost nothing
+            st, _ = dec(st)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    say(cl, f"plain chunked decode: {ms:.3f} ms/step over {n_steps} steps at "
+            f"r = {r}")
+
+    # Griffin-Lim on phase 4's mel on the card, warm
+    mel_t = torch.from_numpy(mel.T).to(dev)
+    tts.audio.reconstruct_waveform(mel_t, n_iter=32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gl = tts.audio.reconstruct_waveform(mel_t, n_iter=32)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(gl).all())
+    say(cl, f"Griffin-Lim (reconstruct_waveform, 32 iterations) on a "
+            f"{mel.shape[0]}-frame mel: {ms:.1f} ms, "
+            f"{gl.shape[0]} samples ({gl.shape[0] / sr:.3f} s), finite "
+            f"{finite}")
+    if not finite or gl.shape[0] != (mel.shape[0] - 1) * hop:
+        failures.append("Griffin-Lim")
 
 
 def main() -> int:
@@ -959,6 +1153,12 @@ def main() -> int:
                 failures.append(f"wavernn_sample_loop {wdt} vs plain "
                                 "(serving shapes)")
         say(cl, line)
+
+    # ---- 7. the streamed path, and Griffin-Lim ----
+    t0 = time.perf_counter()
+    stream_phase(cl, tts, voc, ref_mel, spk, mel, failures)
+    say(cl, f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {"name": "fused_decode", "route": "cuda",
          "source": "etts_torch/csrc/decoder_step.cu",

@@ -1,6 +1,7 @@
 """High-level synthesis API (port of ``etts/api.py``): ``TTSSynthesizer``
 (text + reference audio + speaker -> mel) and ``VocoderSynthesizer``
-(mel -> waveform), both loading the flat npz weight exports.
+(mel -> waveform), both loading the flat npz weight exports, and the
+streamed synthesis ``TTSSynthesizer.stream``.
 
 On the card both run their CUDA kernels: the fused decode for one text
 when the model's geometry allows it (``can_fuse``), and the WaveRNN sample
@@ -68,8 +69,10 @@ class TTSSynthesizer:
         return np.asarray(self.pipeline(text), np.int64)
 
     def mel_from_wav(self, wav) -> np.ndarray:
-        """Reference wav -> normalized mel (t, n_mels)."""
-        return self.audio.mel_spectrogram(wav).T.numpy()
+        """Reference wav -> normalized mel (t, n_mels), computed on the
+        synthesizer's device."""
+        wav = torch.as_tensor(np.asarray(wav, np.float32), device=self.device)
+        return self.audio.mel_spectrogram(wav).T.cpu().numpy()
 
     def _conditioning(self, ref_mel, spk_embed, n: int):
         """The encoder's reference and speaker inputs for n rows (the one
@@ -160,6 +163,47 @@ class TTSSynthesizer:
         (t_i, n_mels) in [-4, 4]."""
         return self._decode(list(texts), ref_mel, spk_embed, max_length,
                             seed, attn_stop_patience, max_frames_per_token)[0]
+
+    # -- streaming ----------------------------------------------------------
+
+    def _stream_inputs(self, text, ref_mel, spk_embed):
+        """One text's ids (1, n) and its encoder conditioning on the device."""
+        inp = torch.from_numpy(self.encode_text(text))[None].to(self.device)
+        return (inp, *self._conditioning(ref_mel, spk_embed, 1))
+
+    def stream_mels(self, text, ref_mel=None, spk_embed=None, *,
+                    mel_chunk: int = 40, max_length: int = 1000,
+                    seed: int = 0):
+        """Yield mel chunks (t_i, n_mels) in [-4, 4], numpy, as they decode:
+        ``streaming.stream_mel`` with the plain chunked decode
+        (`etts/api.py:249-257`), the dropout's generator seeded with
+        ``seed`` on the device. Like etts' stream, it applies no runaway
+        guard."""
+        from .streaming import stream_mel
+        inp, ref, spk = self._stream_inputs(text, ref_mel, spk_embed)
+        yield from stream_mel(
+            self.model, inp, ref, spk, chunk=mel_chunk, r=self.r,
+            max_length=max_length, prenet_dropout=self.prenet_dropout,
+            generator=torch.Generator(self.device).manual_seed(seed))
+
+    def stream(self, text, vocoder: "VocoderSynthesizer", ref_mel=None,
+               spk_embed=None, *, mel_chunk: int = 40, max_length: int = 1000,
+               seed: int = 0, int8_weights=None):
+        """Yield waveform chunks of mel_chunk * r * hop samples, numpy, end
+        to end (`etts/api.py:259-290`): ``streaming.stream_synthesize``,
+        the decode seeded with ``seed`` and the sample loop with seed + 1.
+        Mu-law and the weight mode come from ``vocoder`` as its
+        ``generate`` takes them; any int8 flag, "mxu" included, runs the
+        "int8" sample loop, as etts' stream does."""
+        from .streaming import stream_synthesize
+        inp, ref, spk = self._stream_inputs(text, ref_mel, spk_embed)
+        int8 = bool(vocoder._int8(int8_weights))
+        yield from stream_synthesize(
+            self.model, vocoder.model, inp, ref, spk, r=self.r,
+            max_length=max_length, mel_chunk=mel_chunk,
+            prenet_dropout=self.prenet_dropout,
+            mu_law=vocoder._pick(None, "mu_law", True), int8_weights=int8,
+            seed=seed, voc_weights=vocoder._loop_args(int8)["weights"])
 
 
 class VocoderSynthesizer:

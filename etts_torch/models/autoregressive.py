@@ -151,6 +151,30 @@ class AutoregressiveTransformer(nn.Module):
         return mel.reshape(mel.shape[0], r, self.mel_channels), w
 
 
+def _decode_group(model: AutoregressiveTransformer, last, window, enc,
+                  cross_mask, caches, i: int, r: int, prenet_dropout: float,
+                  generator, stop_enabled: bool):
+    """Step i of the decode, shared by ``autoregressive_predict`` and the
+    chunked decode: ``decode_step`` from the feedback frame ``last``, the
+    postnet over the W = ctx + r frames ending at the new group (``window``
+    holds the W before it), the stop class on each of the r frames. Returns
+    (final frames (b, r, mel), the new window, stop hits (b, r), frames up
+    to and including the first hit, else r (b,), the last block's
+    cross-attention). The caches are updated in place."""
+    mel_r, cross_attn = model.decode_step(
+        last, enc, cross_mask, caches, i, r, prenet_dropout, generator)
+    window = torch.cat([window[:, r:], mel_r], 1)
+    post = model.Postnet(window)
+    if stop_enabled:
+        hit = post["stop_prob"][:, -r:].argmax(-1) == model.stop_prob_index
+    else:
+        hit = torch.zeros(last.shape[0], r, dtype=torch.bool,
+                          device=last.device)
+    group_len = torch.where(hit.any(-1), hit.long().argmax(-1) + 1,
+                            torch.full_like(hit[:, 0], r, dtype=torch.long))
+    return post["final_output"][:, -r:], window, hit, group_len, cross_attn
+
+
 @torch.no_grad()
 def autoregressive_predict(model: AutoregressiveTransformer, inputs,
                            ref_mel=None, spk_embed=None, *, r: int = 1,
@@ -182,7 +206,7 @@ def autoregressive_predict(model: AutoregressiveTransformer, inputs,
     enc, cross_mask, text_attn, gst_attn, gst_tokens, *_ = model.encode(
         inputs, ref_mel, spk_embed)
     caches = model.init_caches(enc, max_steps)
-    lin_buf = enc.new_zeros(b, W + max_steps * r, mel_ch)
+    window = enc.new_zeros(b, W, mel_ch)
     out_buf = enc.new_zeros(b, max_steps * r, mel_ch)
     last = enc.new_full((b, 1, mel_ch), model.mel_start_value)
     stopped = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -193,19 +217,11 @@ def autoregressive_predict(model: AutoregressiveTransformer, inputs,
         cap = torch.clamp((n_real.float() * max_frames_per_token).long(), min=r)
     i = 0
     while i < max_steps and not bool(stopped.all()):
-        mel_r, cross_attn = model.decode_step(
-            last, enc, cross_mask, caches, i, r, prenet_dropout, generator)
-        lin_buf[:, W + i * r:W + (i + 1) * r] = mel_r
-        post = model.Postnet(lin_buf[:, i * r + r:i * r + r + W])
-        final_r = post["final_output"][:, -r:]
+        final_r, window, hit, group_len, cross_attn = _decode_group(
+            model, last, window, enc, cross_mask, caches, i, r,
+            prenet_dropout, generator, stop_enabled)
         out_buf[:, i * r:(i + 1) * r] = final_r
-        if stop_enabled:
-            hit = post["stop_prob"][:, -r:].argmax(-1) == model.stop_prob_index
-        else:
-            hit = torch.zeros(b, r, dtype=torch.bool, device=dev)
         hit_any = hit.any(-1)
-        group_len = torch.where(hit_any, hit.long().argmax(-1) + 1,
-                                torch.full_like(lengths, r))
         stop_now = hit_any
         if attn_stop_patience is not None:
             focus = cross_attn.mean(1)[:, -1].argmax(-1)
@@ -226,3 +242,74 @@ def autoregressive_predict(model: AutoregressiveTransformer, inputs,
             "mel_length": int(lengths.max()), "steps": i,
             "text_encoder_attention": text_attn,
             "gst_encoder_attention": gst_attn, "gst_tokens": gst_tokens}
+
+
+# ---------------------------------------------------------------------------
+# Streamed (chunked) decode
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def streaming_decode_init(model: AutoregressiveTransformer, inputs,
+                          ref_mel=None, spk_embed=None, *, r: int = 1,
+                          max_length: int = 1000,
+                          generator: Optional[torch.Generator] = None):
+    """Encode once and build the carry of ``make_chunk_decoder``'s
+    ``decode_chunk`` (`etts/models/autoregressive.py:459-494`): the encoder
+    output and cross mask, the KV caches at max_steps = max_length // r + 1,
+    the feedback frame ``last``, the postnet ``window`` (the W = ctx + r
+    frames ending at the newest group, zeros before the start), the step
+    ``i``, ``stopped`` and ``lengths`` per row, and the prenet dropout's
+    ``generator``. Inputs as ``autoregressive_predict``'s."""
+    b = inputs.shape[0]
+    max_steps = int(max_length) // r + 1
+    W = model.postnet_conv_layers * (model.postnet_kernel_size - 1) + r
+    enc, cross_mask, *_ = model.encode(inputs, ref_mel, spk_embed)
+    return {"enc": enc, "cross_mask": cross_mask,
+            "caches": model.init_caches(enc, max_steps),
+            "max_steps": max_steps,
+            "last": enc.new_full((b, 1, model.mel_channels),
+                                 model.mel_start_value),
+            "window": enc.new_zeros(b, W, model.mel_channels),
+            "i": 0,
+            "stopped": torch.zeros(b, dtype=torch.bool, device=enc.device),
+            "lengths": torch.zeros(b, dtype=torch.long, device=enc.device),
+            "generator": generator}
+
+
+def make_chunk_decoder(model: AutoregressiveTransformer, *, chunk: int,
+                       r: int = 1, prenet_dropout: float = 0.5,
+                       stop_enabled: bool = True):
+    """``decode_chunk(state) -> (state, mel (b, chunk * r, mel))``: the next
+    ``chunk`` steps of ``autoregressive_predict`` from the carry of
+    ``streaming_decode_init`` (`etts/models/autoregressive.py:497-562`).
+
+    Each live step is ``autoregressive_predict``'s step (``_decode_group``,
+    with the carried generator), so the chunked decode is that decode split
+    at chunk boundaries, bit for bit on one device. Every step reads
+    ``stopped`` on the host; a step after every row has stopped, or past
+    max_steps, only advances ``i`` and leaves its frames zero, as etts'
+    ``dead`` branch does. The returned state is a new dict; the KV caches
+    inside it are updated in place."""
+    @torch.no_grad()
+    def decode_chunk(state):
+        state = dict(state)
+        last = state["last"]
+        b, _, mel_ch = last.shape
+        out = last.new_zeros(b, chunk * r, mel_ch)
+        for k in range(chunk):
+            i = state["i"]
+            state["i"] = i + 1
+            if i >= state["max_steps"] or bool(state["stopped"].all()):
+                continue
+            final_r, state["window"], hit, group_len, _ = _decode_group(
+                model, state["last"], state["window"], state["enc"],
+                state["cross_mask"], state["caches"], i, r, prenet_dropout,
+                state["generator"], stop_enabled)
+            out[:, k * r:(k + 1) * r] = final_r
+            state["lengths"] = torch.where(state["stopped"], state["lengths"],
+                                           i * r + group_len)
+            state["stopped"] = state["stopped"] | hit.any(-1)
+            state["last"] = final_r[:, -1:]
+        return state, out
+
+    return decode_chunk

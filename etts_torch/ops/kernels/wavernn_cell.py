@@ -423,9 +423,15 @@ def _sample(logits, u, mode: str, n_classes: int):
                        * (torch.log(u2) - torch.log1p(-u2)), -1.0, 1.0)
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The plain version's generator seed for global step ``step``: the low
+    32 bits of ``seed`` above the low 32 bits of ``step``."""
+    return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+
+
 @torch.no_grad()
 def wavernn_sample_loop_plain(cond, w, *, mode="MOL", n_classes=30,
-                              noise=None, generator=None, state=None,
+                              noise=None, seed=0, state=None,
                               teacher=None, weight_dtype=None):
     """The plain PyTorch version of the kernel of ``weight_dtype``, with the
     TPU kernel's rounding: for ``SampleLoopWeights`` (``weight_dtype=None``)
@@ -434,7 +440,10 @@ def wavernn_sample_loop_plain(cond, w, *, mode="MOL", n_classes=30,
     ``Int8SampleLoopWeights`` (``"int8"``, ``"int8_mxu"``) its int8 modes.
 
     cond (T, B, feat + 4*adim) = [mels_up | a1 | a2 | a3 | a4]. Uniforms come
-    from ``noise`` (T, B, n_draw) or ``generator``. ``teacher`` (T, B), when
+    from ``noise`` (T, B, n_draw), or else from ``seed``: the uniforms of
+    global step s (``state["step"]`` + t) are drawn by a generator seeded
+    with ``step_seed(seed, s)``, so a run split into chunks with carried
+    state draws what one run draws. ``teacher`` (T, B), when
     given, replaces the fed-back sample of step t with teacher[t] (the
     kernel's own output, to check each step's function without feedback
     divergence). Returns (samples (T, B), state)."""
@@ -446,10 +455,14 @@ def wavernn_sample_loop_plain(cond, w, *, mode="MOL", n_classes=30,
     step = (_bf16_step(cond, w) if weight_dtype is None
             else _int8_step(cond, w, weight_dtype == "int8_mxu"))
     out = torch.empty(T, B, device=cond.device)
+    gen = torch.Generator(cond.device) if noise is None else None
     for t in range(T):
         logits, h1, h2 = step(t, x_prev.float(), h1, h2)
-        u = (noise[t] if noise is not None else torch.rand(
-            B, nd, generator=generator, device=cond.device))
+        if noise is None:
+            gen.manual_seed(step_seed(seed, state["step"] + t))
+            u = torch.rand(B, nd, generator=gen, device=cond.device)
+        else:
+            u = noise[t]
         out[t] = _sample(logits, u, mode, n_classes)
         x_prev = out[t] if teacher is None else teacher[t].float()
     return out, {"h1": h1, "h2": h2, "x": x_prev, "step": state["step"] + T}
@@ -539,25 +552,23 @@ def quant_div_mismatches(n: int, device) -> tuple:
 def wavernn_sample_loop(cond, w, *, mode="MOL", n_classes=30, noise=None,
                         seed=0, state=None, weight_dtype=None):
     """Run the sample loop: the kernel of ``weight_dtype`` for CUDA tensors,
-    its plain version (with a generator seeded from ``seed``) for CPU
-    tensors.
+    its plain version (uniforms drawn per global step from ``seed``,
+    ``step_seed``) for CPU tensors.
 
     ``w``: ``SampleLoopWeights`` (bf16 for the kernel) when ``weight_dtype``
     is None, ``Int8SampleLoopWeights`` for ``"int8"`` and ``"int8_mxu"``.
     cond (T, B, feat + 4*adim); ``noise`` optional uniforms (T, B, n_draw);
     ``state`` {h1, h2, x, step} from an earlier chunk continues the same
-    sequence (the kernel's Philox stream is indexed by the global step).
+    sequence: the kernel's Philox stream and the plain version's draws are
+    both indexed by the global step.
     Returns (samples (T, B), state). Each kernel counts its launches:
     ``launches`` (bf16), ``launches_int8``, ``launches_int8_mxu``."""
     _check(cond, w, mode, weight_dtype)
     if cond.is_cuda:
         return _launch(cond, w, mode, n_classes, noise, seed, state,
                        weight_dtype)
-    gen = None
-    if noise is None:
-        gen = torch.Generator().manual_seed(seed + (state or {}).get("step", 0))
     return wavernn_sample_loop_plain(cond, w, mode=mode, n_classes=n_classes,
-                                     noise=noise, generator=gen, state=state,
+                                     noise=noise, seed=seed, state=state,
                                      weight_dtype=weight_dtype)
 
 

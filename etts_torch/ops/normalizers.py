@@ -1,16 +1,21 @@
-"""Mel normalizers and mu-law decoding (port of
-``etts/ops/normalizers.py:26-120``)."""
+"""Mel normalizers (normalize and denormalize) and mu-law decoding (port
+of ``etts/ops/normalizers.py:26-120``)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-__all__ = ["MelGAN", "WaveRNNNorm", "get_normalizer", "mu_law_decode"]
+__all__ = ["MelGAN", "WaveRNNNorm", "get_normalizer", "mu_law_decode",
+           "db_to_amp"]
 
 
 def amp_to_db(x):
     return 20.0 * torch.log10(torch.clamp(x, min=1e-5))
+
+
+def db_to_amp(x):
+    return torch.pow(10.0, x * 0.05)
 
 
 class MelGAN:
@@ -20,6 +25,9 @@ class MelGAN:
 
     def normalize(self, S):
         return torch.log(torch.clamp(S, min=self.clip_min))
+
+    def denormalize(self, S):
+        return torch.exp(S)
 
 
 class WaveRNNNorm:
@@ -34,6 +42,11 @@ class WaveRNNNorm:
         S = torch.clamp((amp_to_db(S) - self.min_level_db) / -self.min_level_db,
                         0.0, 1.0)
         return S * 2.0 * self.max_norm - self.max_norm
+
+    def denormalize(self, S):
+        S = (S + self.max_norm) / (2.0 * self.max_norm)
+        return db_to_amp(torch.clamp(S, 0.0, 1.0) * -self.min_level_db
+                         + self.min_level_db)
 
 
 _NORMALIZERS = {"MelGAN": MelGAN, "WaveRNN": WaveRNNNorm}

@@ -1,5 +1,5 @@
-"""Reflect-centred STFT and the Slaney mel filterbank (port of
-``etts/ops/stft.py:34-198``, librosa conventions):
+"""Reflect-centred STFT, its inverse, and the Slaney mel filterbank (port
+of ``etts/ops/stft.py:34-198``, librosa conventions):
 
   - periodic Hann window of ``win_length``, zero-padded centred to ``n_fft``
   - center=True framing with reflect padding of ``n_fft // 2``
@@ -13,7 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["hann_window", "stft", "mel_filterbank", "MelSpectrogram"]
+__all__ = ["hann_window", "stft", "istft", "mel_filterbank",
+           "MelSpectrogram"]
 
 
 def hann_window(win_length: int) -> np.ndarray:
@@ -48,6 +49,32 @@ def stft(y: torch.Tensor, n_fft: int, hop_length: int,
     y = F.pad(y.double()[None, None], (pad, pad), mode="reflect")[0, 0]
     frames = y.unfold(0, n_fft, hop_length)            # (n_frames, n_fft)
     return torch.fft.rfft(frames * window, dim=-1).T.to(torch.complex64)
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+          center: bool = True, length: int | None = None) -> torch.Tensor:
+    """Inverse of ``stft``: spec (1 + n_fft//2, n_frames) -> float32
+    waveform by windowed overlap-add, divided by the overlapped squared
+    window (at least 1e-10); ``center`` drops n_fft // 2 samples at each
+    end, ``length`` then keeps the first ``length`` samples
+    (`etts/ops/stft.py:90-117`). Computed in float64, as ``stft``."""
+    window = torch.from_numpy(_padded_window(win_length, n_fft)).to(
+        spec.device, torch.float64)
+    frames = torch.fft.irfft(spec.to(torch.complex128).T, n=n_fft,
+                             dim=-1) * window           # (n_frames, n_fft)
+    n = frames.shape[0]
+    total = n_fft + hop_length * (n - 1)
+    idx = (torch.arange(n, device=spec.device)[:, None] * hop_length
+           + torch.arange(n_fft, device=spec.device)).reshape(-1)
+    y = frames.new_zeros(total).index_add_(0, idx, frames.reshape(-1))
+    wsq = frames.new_zeros(total).index_add_(
+        0, idx, (window ** 2).expand(n, n_fft).reshape(-1))
+    y = y / torch.clamp(wsq, min=1e-10)
+    if center:
+        y = y[n_fft // 2:total - n_fft // 2]
+    if length is not None:
+        y = y[:length]
+    return y.float()
 
 
 _F_SP = 200.0 / 3          # Slaney linear region step (Hz per mel)

@@ -9,7 +9,10 @@ process (counterpart of ``synthesize_sentences.py``).
         --sentences "Scientists say they have discovered a new particle."
 
 Writes ``<out_dir>/<i>.wav`` (16-bit PCM) and ``<out_dir>/<i>_mel.npy``
-((t, n_mels) in [-4, 4]) per sentence.
+((t, n_mels) in [-4, 4]) per sentence. Without ``--voc_config`` and
+``--voc_weights`` (both or neither), the wav comes from Griffin-Lim
+(``AudioProcessor.reconstruct_waveform``, 32 iterations), as
+``synthesize_sentences.py`` does without a vocoder.
 """
 from __future__ import annotations
 
@@ -49,8 +52,10 @@ def main(argv=None):
     p.add_argument("--tts_step", type=int, default=0,
                    help="training step of the TTS weights (sets r and the "
                         "prenet dropout from the config's schedules)")
-    p.add_argument("--voc_config", required=True)
-    p.add_argument("--voc_weights", required=True, help="flat npz export")
+    p.add_argument("--voc_config", default=None,
+                   help="vocoder config dir (omit with --voc_weights for "
+                        "Griffin-Lim)")
+    p.add_argument("--voc_weights", default=None, help="flat npz export")
     p.add_argument("--sentences", nargs="+", required=True)
     p.add_argument("--ref_wav", default=None, help="reference-style audio")
     p.add_argument("--spk_embed", default=None, help="speaker d-vector .npy")
@@ -66,12 +71,18 @@ def main(argv=None):
                         "each step reads)")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
+    if (a.voc_config is None) != (a.voc_weights is None):
+        p.error("give --voc_config and --voc_weights together, or neither "
+                "for Griffin-Lim")
+
+    import torch
 
     from .api import TTSSynthesizer, VocoderSynthesizer
     tts = TTSSynthesizer(a.tts_config, a.tts_weights, a.device,
                          step=a.tts_step,
                          phonemizer_backend=a.phonemizer_backend)
-    voc = VocoderSynthesizer(a.voc_config, a.voc_weights, a.device)
+    voc = (VocoderSynthesizer(a.voc_config, a.voc_weights, a.device)
+           if a.voc_config else None)
     sr = tts.config["sampling_rate"]
     ref_mel = (tts.mel_from_wav(read_wav(a.ref_wav, sr))
                if a.ref_wav else None)
@@ -83,8 +94,13 @@ def main(argv=None):
                           seed=a.seed + i,
                           attn_stop_patience=a.attn_stop_patience,
                           max_frames_per_token=a.frames_per_token)["mel"]
-        wav = voc.generate((mel + 4.0) / 8.0, seed=a.seed + i,
-                           int8_weights=a.int8 or None)
+        if voc is not None:
+            wav = voc.generate((mel + 4.0) / 8.0, seed=a.seed + i,
+                               int8_weights=a.int8 or None)
+        else:
+            wav = tts.audio.reconstruct_waveform(
+                torch.from_numpy(mel.T).to(tts.device), n_iter=32)
+            wav = wav.cpu().numpy()
         write_wav(out / f"{i}.wav", wav, sr)
         np.save(out / f"{i}_mel.npy", mel)
         print(f"{i}: {sentence!r} -> {mel.shape[0]} frames, "
