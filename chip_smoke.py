@@ -66,8 +66,23 @@ Phases (any failure exits non-zero and prints no result line):
      3), each later chunk's time, the stream's real-time factor, the sample
      loop's time a step at one row, and the plain chunked decode's time a
      step; then Griffin-Lim (reconstruct_waveform, 32 iterations) on phase
-     4's mel.
+     4's mel;
+  8. the forward path: a forward model at configs/default's widths on
+     seeded weights (forward_phase), text -> mel -> wav through
+     TTSSynthesizer.predict and VocoderSynthesizer.generate with the
+     launches read around it; the mel on the card against the CPU within
+     FWD_TOL; the sample loop at the path's shapes against its plain
+     version (phase 3's bar) on the vocoder's weights and on seeded MOL
+     weights; TTSSynthesizer.stream in bf16 and int8 (one launch a chunk,
+     the samples against one launch over the chunks' conditioning, bit for
+     bit, and the second chunk at one row against the plain version from
+     the first chunk's state, on seeded weights); then a conv-decoder AR
+     model with prosody statistics: no fused decode, its chunked
+     stream_mels against autoregressive_predict, bit for bit.
 
+Each entry of the kernels line counts the launches of the run it
+describes (the main path's, or the serving run's in its mode), and lists
+every path's own run beside them (launches_by_path), each read from zero.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import dataclasses
@@ -137,6 +152,16 @@ STREAM_CHUNK = 4
 STREAM_MAX_LENGTH = 400
 STREAM_MAX_LENGTH_INT8 = 160
 STREAM_COND = 1e-4
+# phase 8: the forward model's mel on the card against the same model on
+# the CPU, max |d| (float32 on both, TF32 off; values of unit scale); the
+# frames a token lasts under the seeded duration head (about 150 ms at a
+# 12.5 ms hop); the forward stream's text; the conv-decoder AR model's
+# max_length
+FWD_TOL = 1e-3
+FWD_FRAMES_PER_TOKEN = 12.0
+FWD_STREAM_TEXT = "Hello there."
+FWD_STREAM_CHUNK = 40      # frames a vocoder chunk, 0.5 s, as phase 7's
+CONV_MAX_LENGTH = 200
 
 
 def card() -> str:
@@ -165,6 +190,28 @@ def cuda_ms(fn, reps, warm=True):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps, out
+
+
+def _counted():
+    """Each kernel of the kernels line: the wrapper and the attribute that
+    counts its launches."""
+    from etts_torch.ops.kernels import decoder_step as dstep
+    from etts_torch.ops.kernels import wavernn_cell as wcell
+    loop = wcell.wavernn_sample_loop
+    return {"fused_decode": (dstep.fused_decode, "launches"),
+            "wavernn_sample_loop": (loop, "launches"),
+            "wavernn_sample_loop_int8": (loop, "launches_int8"),
+            "wavernn_sample_loop_int8_mxu": (loop, "launches_int8_mxu")}
+
+
+def zero_launches():
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches() -> dict:
+    """{kernel name: launches since the last zero_launches()}."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counted().items()}
 
 
 def bound(n_bytes, n_ops, peak=PEAK_BF16):
@@ -409,7 +456,8 @@ def one_step_check(cl, name, wk, control, exact_fn, weight_dtype, cond_all,
 
 def stream_phase(cl, tts, voc, ref_mel, spk, mel, failures):
     """Phase 7 (see the module docstring); ``mel`` is phase 4's. Failed
-    checks are appended to ``failures``."""
+    checks are appended to ``failures``. Returns each stream's launches
+    ({path: read_launches()})."""
     import numpy as np
     import torch
     from etts_torch import streaming
@@ -418,23 +466,19 @@ def stream_phase(cl, tts, voc, ref_mel, spk, mel, failures):
                                                   streaming_decode_init)
     from etts_torch.models.wavernn import (_conditioning_streams,
                                            _upsample_fold)
-    from etts_torch.ops.kernels import decoder_step as dstep
     from etts_torch.ops.kernels import wavernn_cell as wcell
     from etts_torch.ops.normalizers import mu_law_decode
     dev = tts.device
     vm, m, r = voc.model, tts.model, tts.r
     hop, sr = vm.hop_length, tts.config["sampling_rate"]
     frames = STREAM_CHUNK * r
-    loops = ("launches", "launches_int8", "launches_int8_mxu")
     kw = dict(mel_chunk=STREAM_CHUNK, seed=0)
     n_steps = None          # the bf16 stream's decode steps
 
     def stream(flag, max_length, first_only=False):
         """One stream from the call: (wav chunks, host seconds from the call
         to each chunk, each kernel's launches in it)."""
-        for k in loops:
-            setattr(wcell.wavernn_sample_loop, k, 0)
-        dstep.fused_decode.launches = 0
+        zero_launches()
         chunks, times = [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -446,17 +490,18 @@ def stream_phase(cl, tts, voc, ref_mel, spk, mel, failures):
             if first_only:
                 gen.close()
                 break
-        ran = {k: getattr(wcell.wavernn_sample_loop, k) for k in loops}
-        return chunks, times, dict(ran, fused_decode=dstep.fused_decode.launches)
+        return chunks, times, read_launches()
 
     stream(False, 2 * frames)               # warm-up, both weight modes
     stream(True, 2 * frames)
     inp, ref, spk_t = tts._stream_inputs(SENTENCE, ref_mel, spk)
+    paths = {}
     for label, flag, max_length, counter, wdt in (
-            ("bf16", False, STREAM_MAX_LENGTH, "launches", None),
+            ("bf16", False, STREAM_MAX_LENGTH, "wavernn_sample_loop", None),
             ("int8_weights='mxu'", "mxu", STREAM_MAX_LENGTH_INT8,
-             "launches_int8", "int8")):
+             "wavernn_sample_loop_int8", "int8")):
         chunks, times, ran = stream(flag, max_length)
+        paths[f"stream_{wdt or 'bf16'}"] = ran
         firsts = [times[0]]
         if wdt is None:     # first audio, best of 3
             firsts += [stream(flag, max_length, True)[1][0] for _ in range(2)]
@@ -577,6 +622,270 @@ def stream_phase(cl, tts, voc, ref_mel, spk, mel, failures):
             f"{finite}")
     if not finite or gl.shape[0] != (mel.shape[0] - 1) * hop:
         failures.append("Griffin-Lim")
+    return paths
+
+
+def forward_phase(cl, voc, ref_mel, spk, seeded, failures):
+    """Phase 8: the forward (duration) model of configs/default's
+    forward_config.yaml (d 256, 4 + 4 dense blocks, FFN 1024, max_frames
+    1280, mel 80, postnet 5 x 256) on seeded weights
+    (``etts_torch.convert.seeded_flat``), the duration head's bias set to
+    FWD_FRAMES_PER_TOKEN, so that a token lasts about 12 frames (about 150
+    ms of a phoneme at a 12.5 ms hop) and SENTENCE (76 tokens) expands to
+    about 900 of the 1280 frames; then a conv-decoder AR model with prosody
+    statistics. ``seeded``: phase 3's seeded MOL sample-loop weights,
+    {None: bf16, "int8": int8}, whose samples do not all clip.
+    Failed checks are appended to ``failures``. Returns each run's
+    launches ({path: read_launches()})."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import yaml
+    from etts_torch import streaming
+    from etts_torch.api import TTSSynthesizer
+    from etts_torch.convert import seeded_flat
+    from etts_torch.models.autoregressive import autoregressive_predict
+    from etts_torch.models.wavernn import (_clamp_mels, _conditioning_streams,
+                                           fold_with_overlap)
+    from etts_torch.ops.kernels import wavernn_cell as wcell
+    from etts_torch.ops.normalizers import mu_law_decode
+    from etts_torch.utils.config import (build_forward, build_tts,
+                                         load_config, text_pipeline)
+    dev = torch.device("cuda")
+    vm = voc.model
+    sr, hop = voc.config["sampling_rate"], vm.hop_length
+    mu_law = voc._pick(None, "mu_law", True) and vm.mode == "RAW"
+    paths = {}
+
+    def held(label, cond, wts, wdt, state=None, seed=8):
+        """The sample loop on ``cond`` from ``state``, against its plain
+        version fed the kernel's samples, shared uniforms: phase 3's bar
+        (STEP_AGREE_BF16 of the steps within STEP_TOL; the int8 kernel's
+        too, as phase 3b holds it)."""
+        T, B, _ = cond.shape
+        u = torch.rand(T, B, wcell.n_draw(vm.mode, vm.n_classes, wts.n_out),
+                       device=dev, generator=torch.Generator(dev).manual_seed(
+                           seed))
+        kw = dict(mode=vm.mode, n_classes=vm.n_classes, noise=u,
+                  weight_dtype=wdt, state=state)
+        ms, (k_out, _) = cuda_ms(
+            lambda: wcell.wavernn_sample_loop(cond, wts, **kw), 1, warm=False)
+        t_out, _ = wcell.wavernn_sample_loop_plain(cond, wts, teacher=k_out,
+                                                   **kw)
+        diff = (k_out - t_out).abs()
+        agree = float((diff <= STEP_TOL).float().mean())
+        say(cl, f"wavernn_sample_loop {wdt or 'bf16'} vs plain ({label}), "
+                f"B={B} T={T}: per-step (same history) max |d| "
+                f"{float(diff.max()):.3e}, {agree:.6f} of steps within "
+                f"{STEP_TOL} (bar {STEP_AGREE_BF16}); "
+                f"{float((k_out.abs() < 1).float().mean()):.4f} of samples "
+                f"inside (-1, 1); kernel {ms:.2f} ms")
+        if agree < STEP_AGREE_BF16 or not bool(torch.isfinite(k_out).all()):
+            failures.append(f"wavernn_sample_loop {wdt or 'bf16'} vs plain "
+                            f"({label})")
+
+    cfg = load_config(CONFIG, "forward")
+    vocab = text_pipeline(cfg, "grapheme", "forward").tokenizer.vocab_size
+    flat = seeded_flat(build_forward(cfg, vocab), 11)
+    flat["['dur_pred']['linear']['bias']"][:] = FWD_FRAMES_PER_TOKEN
+    kw = dict(phonemizer_backend="grapheme", model_kind="forward")
+    fwd = TTSSynthesizer(CONFIG, flat, "cuda", **kw)
+    fwd_cpu = TTSSynthesizer(CONFIG, flat, "cpu", **kw)
+    ids = torch.from_numpy(fwd.encode_text(SENTENCE))[None].to(dev)
+    cap = int(cfg["max_frames"])
+
+    # text -> mel -> wav, warm, the counts read around it
+    fwd.predict(SENTENCE)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mel = fwd.predict(SENTENCE)["mel"]
+    t_mel = time.perf_counter() - t0
+    wav = voc.generate((mel + 4.0) / 8.0, seed=0)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    ran = paths["forward"] = read_launches()
+    audio_s = wav.shape[0] / sr
+    want = {k: 0 for k in ran} | {"wavernn_sample_loop": 1}
+    if ran != want:
+        failures.append(f"forward path launches {ran}, want {want}")
+    if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+            and wav.shape[0] == (mel.shape[0] - 1) * hop):
+        failures.append("forward path wav")
+    with torch.no_grad():
+        fwd_ms, out = cuda_ms(lambda: fwd.model(ids, max_frames=cap), 5)
+        dur = out["duration"][0, :, 0]
+    # the sample loop alone at the forward path's conditioning, folded as
+    # VocoderSynthesizer.generate folds it: timed as generate calls it, and
+    # held against its plain version at these shapes on the vocoder's
+    # weights and on the seeded MOL weights, whose samples do not all clip
+    target = voc.config.get("voc_target", 11000)
+    overlap = voc.config.get("voc_overlap", 550)
+    with torch.no_grad():
+        vmel = _clamp_mels(torch.from_numpy((mel + 4.0) / 8.0).to(dev))
+        up, aux = vm.upsample(F.pad(vmel[None], (0, 0, vm.pad, vm.pad)))
+        cond = _conditioning_streams(fold_with_overlap(up, target, overlap),
+                                     fold_with_overlap(aux, target, overlap))
+    b1_ms, _ = cuda_ms(lambda: wcell.wavernn_sample_loop(
+        cond, voc.weights, mode=vm.mode, n_classes=vm.n_classes, seed=0), 1,
+        warm=False)
+    for label, wts in (("the forward path's shapes, the vocoder's weights",
+                        voc.weights),
+                       ("the forward path's shapes, seeded random weights",
+                        seeded[None])):
+        held(label, cond, wts, None)
+    say(cl, f"forward path: {ids.shape[1]} tokens, durations "
+            f"{float(dur.min()):.2f}-{float(dur.max()):.2f} frames -> "
+            f"{mel.shape[0]} of {cap} frames -> {wav.shape[0]} samples "
+            f"({audio_s:.3f} s); launches {ran}")
+    say(cl, f"forward path: text -> wav {e2e:.3f} s, RTF "
+            f"{e2e / audio_s:.4f}; predict {t_mel * 1e3:.1f} ms (host); "
+            f"forward pass {fwd_ms:.3f} ms (CUDA events, mean of 5); "
+            f"wavernn_sample_loop bf16 {b1_ms:.2f} ms for T={cond.shape[0]} "
+            f"x B={cond.shape[1]}; the rest (upsampling, fold, finalize, "
+            f"copies, host) {(e2e * 1e3 - fwd_ms - b1_ms):.1f} ms")
+
+    # the card against the same model on the CPU, float32
+    mel_cpu = fwd_cpu.predict(SENTENCE)["mel"]
+    d_mel = (float(np.abs(mel - mel_cpu).max())
+             if mel.shape == mel_cpu.shape else float("inf"))
+    say(cl, f"forward predict, card vs CPU (float32): {mel.shape[0]} vs "
+            f"{mel_cpu.shape[0]} frames, max |dmel| {d_mel:.3e} (tol "
+            f"{FWD_TOL})")
+    if not d_mel <= FWD_TOL:
+        failures.append("forward predict, card vs CPU")
+
+    # the stream of a short text, bf16 and int8 ("mxu" runs "int8")
+    smel = fwd.predict(FWD_STREAM_TEXT)["mel"]
+
+    def stream(flag, first_only=False):
+        zero_launches()
+        chunks, times = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = fwd.stream(FWD_STREAM_TEXT, voc, mel_chunk=FWD_STREAM_CHUNK,
+                         seed=0, int8_weights=flag)
+        for c in gen:
+            times.append(time.perf_counter() - t0)
+            chunks.append(c)
+            if first_only:
+                gen.close()
+                break
+        return chunks, times, read_launches()
+
+    stream(False, True)                     # warm-up
+    stream(True, True)
+    n_chunks = -(-smel.shape[0] // (FWD_STREAM_CHUNK))
+    for label, flag, counter, wdt in (("bf16", False, "wavernn_sample_loop",
+                                       None),
+                                      ("int8_weights=True", True,
+                                       "wavernn_sample_loop_int8", "int8")):
+        chunks, times, ran = stream(flag)
+        paths[f"forward_stream_{wdt or 'bf16'}"] = ran
+        firsts = [times[0]]
+        if wdt is None:
+            firsts += [stream(flag, True)[1][0] for _ in range(2)]
+        want = {k: 0 for k in ran} | {counter: n_chunks}
+        if ran != want:
+            failures.append(f"forward stream ({label}) launches {ran}, "
+                            f"want {want}")
+        wav = np.concatenate(chunks)
+        audio_s = wav.shape[0] / sr
+        if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+                and wav.shape[0] == smel.shape[0] * hop):
+            failures.append(f"forward stream ({label}) wav")
+        # the streamed samples against one launch over the chunks'
+        # conditioning, seed 1 (the stream's seed + 1)
+        with torch.no_grad():
+            conds = [streaming._chunk_cond(vm, ctx)[:n * hop] for ctx, n in
+                     streaming._chunk_contexts([(smel + 4.0) / 8.0],
+                                               FWD_STREAM_CHUNK, vm.pad,
+                                               vm.feat_dims, dev)]
+        wts = voc._loop_args(flag)["weights"]
+        one, _ = wcell.wavernn_sample_loop(
+            torch.cat(conds), wts, mode=vm.mode, n_classes=vm.n_classes,
+            seed=1, weight_dtype=wdt)
+        one = one[:, 0]
+        if mu_law:
+            one = mu_law_decode(one, vm.n_classes, from_labels=False)
+        one = one.cpu().numpy()
+        d_wav = (float(np.abs(wav - one).max()) if one.shape == wav.shape
+                 else float("inf"))
+        if d_wav != 0.0:
+            failures.append(f"forward stream ({label}) samples")
+        say(cl, f"forward stream ({label}) of {FWD_STREAM_TEXT!r}: "
+                f"{smel.shape[0]} frames in {len(chunks)} chunks of "
+                f"{FWD_STREAM_CHUNK}, {audio_s:.3f} s in {times[-1]:.3f} s, "
+                f"stream RTF {times[-1] / audio_s:.4f}; first audio "
+                f"{min(firsts):.4f} s (best of {len(firsts)}: "
+                f"{', '.join(f'{x:.4f}' for x in firsts)}); samples against "
+                f"one launch over the chunks' conditioning: max |d| "
+                f"{d_wav:.3e} (tol 0); launches {ran}")
+        # the second chunk (interior, one row) against the plain version,
+        # from the state the kernel leaves after the first, on the seeded
+        # weights: the vocoder's clip every sample of this chunk
+        sw = seeded[wdt]
+        u0 = torch.rand(conds[0].shape[0], 1,
+                        wcell.n_draw(vm.mode, vm.n_classes, sw.n_out),
+                        device=dev, generator=torch.Generator(dev).manual_seed(
+                            9))
+        _, st = wcell.wavernn_sample_loop(conds[0], sw, mode=vm.mode,
+                                          n_classes=vm.n_classes, noise=u0,
+                                          weight_dtype=wdt)
+        held("the forward stream's second chunk, from the first's state, "
+             "seeded random weights", conds[1], sw, wdt, state=st)
+
+    # a conv-decoder AR model with prosody statistics (configs/default's AR
+    # widths, 2 dense + 2 conv blocks in the encoder and the decoder),
+    # seeded weights, a stop head that never fires
+    cfg = load_config(CONFIG, "autoregressive")
+    cfg.update(encoder_dense_blocks=2, decoder_dense_blocks=2,
+               use_prosody_stats=True)
+    cdir = ROOT / "build" / "phase8_config"
+    cdir.mkdir(parents=True, exist_ok=True)
+    (cdir / "data_config.yaml").write_text(
+        (CONFIG / "data_config.yaml").read_text())
+    (cdir / "autoregressive_config.yaml").write_text(yaml.safe_dump(cfg))
+    vocab = text_pipeline(cfg, "grapheme").tokenizer.vocab_size
+    flat = seeded_flat(build_tts(cfg, vocab), 12)
+    flat["['Postnet']['stop_linear']['kernel']"][:] = 0.0
+    flat["['Postnet']['stop_linear']['bias']"][:] = [10.0, 0.0, -10.0]
+    conv = TTSSynthesizer(cdir, flat, "cuda", step=14000,
+                          phonemizer_backend="grapheme")
+    r = conv.r
+    conv.predict(SENTENCE, ref_mel, spk, max_length=CONV_MAX_LENGTH)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = conv.predict(SENTENCE, ref_mel, spk, max_length=CONV_MAX_LENGTH,
+                       seed=0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / out["steps"] * 1e3
+    ran = paths["conv_ar"] = read_launches()
+    if any(ran.values()):
+        failures.append(f"conv-decoder predict launches {ran}")
+    mel_s = np.concatenate(list(conv.stream_mels(
+        SENTENCE, ref_mel, spk, mel_chunk=STREAM_CHUNK,
+        max_length=CONV_MAX_LENGTH, seed=0)))
+    inp, ref, spk_t = conv._stream_inputs(SENTENCE, ref_mel, spk)
+    with torch.no_grad():
+        ap = autoregressive_predict(
+            conv.model, inp, ref, spk_t, r=r, max_length=CONV_MAX_LENGTH,
+            prenet_dropout=conv.prenet_dropout,
+            generator=torch.Generator(dev).manual_seed(0))
+    mel_p = ap["mel"][0, :ap["mel_length"]].cpu().numpy()
+    same = (mel_s.shape == mel_p.shape == out["mel"].shape
+            and np.array_equal(mel_s, mel_p)
+            and np.array_equal(out["mel"], mel_p))
+    say(cl, f"conv-decoder AR model (2 dense + 2 conv blocks, prosody "
+            f"statistics, r = {r}): {out['steps']} steps, "
+            f"{out['mel'].shape[0]} frames, predict {step_ms:.3f} ms/step "
+            f"(host, synchronised); launches {ran}; stream_mels (chunks of "
+            f"{STREAM_CHUNK} steps) and predict against "
+            f"autoregressive_predict, bit for bit: {same}")
+    if not same or not np.isfinite(mel_p).all():
+        failures.append("conv-decoder chunked stream vs autoregressive_predict")
+    return paths
 
 
 def main() -> int:
@@ -896,8 +1205,7 @@ def main() -> int:
             failures.append(f"wavernn_sample_loop {wdt} chunked state carry")
 
     # ---- 4. the main path ----
-    dstep.fused_decode.launches = 0
-    wcell.wavernn_sample_loop.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = tts.predict(SENTENCE, ref_mel, spk, max_length=max_length, seed=0)
@@ -905,14 +1213,16 @@ def main() -> int:
     wav = voc.generate((mel + 4.0) / 8.0, seed=0)
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
-    launches = {"fused_decode": dstep.fused_decode.launches,
-                "wavernn_sample_loop": wcell.wavernn_sample_loop.launches}
+    # each run's launches, read just after it: {path: read_launches()}
+    paths = {"main": read_launches()}
+    launches = paths["main"]
     audio_s = wav.shape[0] / tts.config["sampling_rate"]
     say(cl, f"main path: {len(tts.encode_text(SENTENCE))} tokens -> "
             f"{mel.shape[0]} frames in {out['steps']} steps -> "
             f"{wav.shape[0]} samples; launches {launches}")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel was not launched: {launches}")
+    if launches != {k: int(k in ("fused_decode", "wavernn_sample_loop"))
+                    for k in launches}:
+        raise RuntimeError(f"main path launches {launches}")
     if wav.shape[0] != (mel.shape[0] - 1) * tts.config["hop_length"]:
         raise RuntimeError("wav length is not (t_mel - 1) * hop")
     if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0):
@@ -1035,36 +1345,30 @@ def main() -> int:
 
     # ---- 6. the serving path ----
     sr, hop = tts.config["sampling_rate"], tts.config["hop_length"]
-    for k in ("launches", "launches_int8", "launches_int8_mxu"):
-        setattr(wcell.wavernn_sample_loop, k, 0)
-    dstep.fused_decode.launches = 0
-
-    def loop_counts():
-        return {k: getattr(wcell.wavernn_sample_loop, k)
-                for k in ("launches", "launches_int8", "launches_int8_mxu")}
-
+    zero_launches()
     batch_ms, mels = cuda_ms(lambda: tts.predict_many(
         SERVING_TEXTS, ref_mel, spk, max_length=max_length, seed=0), 1,
         warm=False)
     dec_s = batch_ms / 1e3
-    if dstep.fused_decode.launches != 0:
-        raise RuntimeError("a batch of texts went through the fused decode")
+    paths["serving_decode"] = read_launches()
+    if any(paths["serving_decode"].values()):
+        raise RuntimeError("a batch of texts went through a kernel: "
+                           f"{paths['serving_decode']}")
     want_rows = sum(n_folds(m.shape[0] * hop, target, overlap) for m in mels)
     say(cl, f"serving: {len(SERVING_TEXTS)} texts of "
             f"{[len(tts.encode_text(x)) for x in SERVING_TEXTS]} tokens -> "
             f"{[m.shape[0] for m in mels]} frames in one decode, "
             f"{dec_s:.3f} s; {want_rows} fold rows")
     voc_mels = [(m + 4.0) / 8.0 for m in mels]
-    serve_s, serve_launches = {}, {}
-    for flag, counter in ((False, "launches"), (True, "launches_int8"),
-                          ("mxu", "launches_int8_mxu")):
-        before = loop_counts()
+    serve_s = {}
+    for flag, wdt in ((False, "bf16"), (True, "int8"), ("mxu", "int8_mxu")):
+        counter = ("wavernn_sample_loop" if wdt == "bf16"
+                   else f"wavernn_sample_loop_{wdt}")
+        zero_launches()
         ms, wavs = cuda_ms(lambda: voc.generate_many(
             voc_mels, seed=0, int8_weights=flag), 1, warm=False)
         serve_s[flag] = ms / 1e3
-        after = loop_counts()
-        ran = {k: after[k] - before[k] for k in after}
-        serve_launches[counter] = ran[counter]
+        ran = paths[f"serving_{wdt}"] = read_launches()
         if ran != {k: int(k == counter) for k in ran}:
             raise RuntimeError(f"generate_many(int8_weights={flag!r}) "
                                f"launched {ran}")
@@ -1156,31 +1460,45 @@ def main() -> int:
 
     # ---- 7. the streamed path, and Griffin-Lim ----
     t0 = time.perf_counter()
-    stream_phase(cl, tts, voc, ref_mel, spk, mel, failures)
+    paths |= stream_phase(cl, tts, voc, ref_mel, spk, mel, failures)
     say(cl, f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8. the forward model, and a conv-decoder AR model ----
+    t0 = time.perf_counter()
+    paths |= forward_phase(cl, voc, ref_mel, spk,
+                           {None: rand_mol, "int8": rand_mol8}, failures)
+    say(cl, f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "fused_decode", "route": "cuda",
          "source": "etts_torch/csrc/decoder_step.cu",
          "replaces": "etts/ops/pallas/decoder_step.py:464",
-         "launches": launches["fused_decode"], "max_abs_err": dec_err,
+         "launches": paths["main"]["fused_decode"], "max_abs_err": dec_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
          "bound_by": dec_by, "library_ms": None},
         {"name": "wavernn_sample_loop", "route": "cuda",
          "source": "etts_torch/csrc/wavernn_cell.cu",
          "replaces": "etts/ops/pallas/wavernn_cell.py:351",
-         "launches": launches["wavernn_sample_loop"], "max_abs_err": voc_err,
+         "launches": paths["main"]["wavernn_sample_loop"],
+         "max_abs_err": voc_err,
          "ms": voc_ms, "plain_ms": voc_plain_ms, "bound_ms": voc_bound,
          "bound_by": voc_by, "library_ms": None},
     ] + [
         {"name": f"wavernn_sample_loop_{wdt}", "route": "cuda",
          "source": "etts_torch/csrc/wavernn_cell.cu",
          "replaces": "etts/ops/pallas/wavernn_cell.py:351",
-         "launches": serve_launches[f"launches_{wdt}"],
+         "launches": paths[f"serving_{wdt}"][f"wavernn_sample_loop_{wdt}"],
          "max_abs_err": q_err[wdt], "ms": serve[wdt]["ms"],
          "plain_ms": serve[wdt]["plain"], "bound_ms": serve[wdt]["bound"],
          "bound_by": serve[wdt]["by"], "library_ms": None}
         for wdt in ("int8", "int8_mxu")]
+    # each entry's launches are those of the run it describes (the main
+    # path, or the serving run in its mode); every path's own run beside
+    for kern in kernels:
+        kern["launches_by_path"] = {p: ran[kern["name"]]
+                                    for p, ran in paths.items()}
+        say(cl, f"{kern['name']} launches by path: "
+                f"{kern['launches_by_path']}")
     for kern in kernels:
         if not all(math.isfinite(kern[k]) for k in
                    ("ms", "plain_ms", "bound_ms", "max_abs_err")):

@@ -1,7 +1,8 @@
 """High-level synthesis API (port of ``etts/api.py``): ``TTSSynthesizer``
-(text + reference audio + speaker -> mel) and ``VocoderSynthesizer``
-(mel -> waveform), both loading the flat npz weight exports, and the
-streamed synthesis ``TTSSynthesizer.stream``.
+(text + reference audio + speaker -> mel with the autoregressive model, or
+text -> mel with the forward model) and ``VocoderSynthesizer`` (mel ->
+waveform), both loading the flat npz weight exports, and the streamed
+synthesis ``TTSSynthesizer.stream``.
 
 On the card both run their CUDA kernels: the fused decode for one text
 when the model's geometry allows it (``can_fuse``), and the WaveRNN sample
@@ -23,8 +24,8 @@ from .models.autoregressive import autoregressive_predict
 from .models.wavernn import generate, generate_batch
 from .ops.audio import AudioProcessor
 from .ops.kernels.decoder_step import can_fuse, decode_weights, fused_decode
-from .utils.config import (build_tts, build_vocoder, load_config,
-                           schedule_values, text_pipeline)
+from .utils.config import (build_forward, build_tts, build_vocoder,
+                           load_config, schedule_values, text_pipeline)
 
 __all__ = ["TTSSynthesizer", "VocoderSynthesizer"]
 
@@ -42,8 +43,21 @@ def _weight_dtype(device: torch.device):
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
+def _reject_forward_conditioning(ref_mel, spk_embed):
+    """The forward model takes no style or speaker conditioning: refuse it
+    rather than ignore it (`etts/api.py:150-161`)."""
+    if ref_mel is not None or spk_embed is not None:
+        raise ValueError(
+            "forward-family models take no ref_mel/spk_embed conditioning "
+            "(ForwardTransformer is text->mel only); use an autoregressive "
+            "system_type for style/speaker control")
+
+
 class TTSSynthesizer:
-    """AR GST-TransformerTTS: text + reference mel + speaker -> mel.
+    """The TTS acoustic model of ``model_kind``: "autoregressive" (AR
+    GST-TransformerTTS, text + reference mel + speaker -> mel, from
+    ``autoregressive_config.yaml``) or "forward" (the duration model, text
+    -> mel in one pass, from ``forward_config.yaml``).
 
     ``step`` is the training step of the weights, which fixes the reduction
     factor and prenet dropout through the config's schedules.
@@ -51,11 +65,18 @@ class TTSSynthesizer:
     one of the two must name it."""
 
     def __init__(self, config_dir, weights_npz, device="cuda", *,
-                 step: int = 0, phonemizer_backend: Optional[str] = None):
+                 step: int = 0, phonemizer_backend: Optional[str] = None,
+                 model_kind: str = "autoregressive"):
+        if model_kind not in ("autoregressive", "forward"):
+            raise ValueError("model_kind must be autoregressive|forward, got "
+                             f"{model_kind!r}")
         self.device = torch.device(device)
-        self.config = load_config(config_dir, "autoregressive")
-        self.pipeline = text_pipeline(self.config, phonemizer_backend)
-        self.model = load_into(build_tts(
+        self.model_kind = model_kind
+        self.config = load_config(config_dir, model_kind)
+        self.pipeline = text_pipeline(self.config, phonemizer_backend,
+                                      model_kind)
+        build = build_tts if model_kind == "autoregressive" else build_forward
+        self.model = load_into(build(
             self.config, self.pipeline.tokenizer.vocab_size),
             weights_npz).to(self.device)
         sched = schedule_values(self.config, step)
@@ -138,15 +159,41 @@ class TTSSynthesizer:
         return ([mel[i, :n] for i, n in enumerate(lengths)], out["steps"],
                 _style(out["gst_tokens"], out["gst_encoder_attention"]))
 
+    @torch.no_grad()
+    def _forward_mel(self, text, speed_regulator: float) -> torch.Tensor:
+        """The forward model's mel (t, n_mels) on the device: one pass at
+        the config's ``max_frames`` capacity (1280 by default), durations
+        scaled by 1 / ``speed_regulator``, cut to the regulated length
+        (`etts/api.py:166-175`)."""
+        ids = torch.from_numpy(self.encode_text(text))[None].to(self.device)
+        out = self.model(ids, max_frames=int(self.config.get("max_frames",
+                                                             1280)),
+                         durations_scalar=1.0 / speed_regulator)
+        return out["mel"][0, :int(out["mel_lengths"][0])]
+
+    def _autoregressive_only(self, name: str):
+        if self.model_kind != "autoregressive":
+            raise ValueError(f"{name} runs the autoregressive model only, "
+                             "as etts' does")
+
     def predict(self, text, ref_mel=None, spk_embed=None, max_length=1000,
                 seed: int = 0, attn_stop_patience=None,
-                max_frames_per_token=None) -> dict:
+                max_frames_per_token=None,
+                speed_regulator: float = 1.0) -> dict:
         """-> {'mel': (t, n_mels) in [-4, 4], 'steps': decode steps run,
         'gst_tokens': {'GST_tokens': the style-token parameters},
         'gst_attention': {'gst_attention': this reference's token-bank
         attention (1, heads, 1, tokens)}}, as `etts/api.py:186-191`; the
         last two None without a style encoder. Guards left at None take the
-        config's values; 0 turns one off."""
+        config's values; 0 turns one off.
+
+        The forward model returns {'mel'} alone, refuses ``ref_mel`` and
+        ``spk_embed``, ignores ``max_length``, the seed and the guards, and
+        divides its durations by ``speed_regulator``."""
+        if self.model_kind == "forward":
+            _reject_forward_conditioning(ref_mel, spk_embed)
+            return {"mel": self._forward_mel(text,
+                                             speed_regulator).cpu().numpy()}
         mels, steps, style = self._decode([text], ref_mel, spk_embed,
                                           max_length, seed,
                                           attn_stop_patience,
@@ -161,6 +208,7 @@ class TTSSynthesizer:
         reference encoded once and tiled with the speaker, one decode over
         the batch with per-row stop tracking. Returns a list of mels
         (t_i, n_mels) in [-4, 4]."""
+        self._autoregressive_only("predict_many")
         return self._decode(list(texts), ref_mel, spk_embed, max_length,
                             seed, attn_stop_patience, max_frames_per_token)[0]
 
@@ -180,6 +228,7 @@ class TTSSynthesizer:
         ``seed`` on the device. Like etts' stream, it applies no runaway
         guard."""
         from .streaming import stream_mel
+        self._autoregressive_only("stream_mels")
         inp, ref, spk = self._stream_inputs(text, ref_mel, spk_embed)
         yield from stream_mel(
             self.model, inp, ref, spk, chunk=mel_chunk, r=self.r,
@@ -194,16 +243,32 @@ class TTSSynthesizer:
         the decode seeded with ``seed`` and the sample loop with seed + 1.
         Mu-law and the weight mode come from ``vocoder`` as its
         ``generate`` takes them; any int8 flag, "mxu" included, runs the
-        "int8" sample loop, as etts' stream does."""
-        from .streaming import stream_synthesize
-        inp, ref, spk = self._stream_inputs(text, ref_mel, spk_embed)
+        "int8" sample loop, as etts' stream does.
+
+        The forward model (`etts/api.py:271-283`) makes its whole mel in one
+        pass (``predict``'s, ``max_length`` ignored), then vocodes
+        (mel + 4) / 8 in chunks of ``mel_chunk`` frames through
+        ``streaming.stream_vocode``, the sample loop seeded with seed + 1,
+        so the first audio waits for one vocoder chunk after the pass."""
+        from .streaming import stream_synthesize, stream_vocode
         int8 = bool(vocoder._int8(int8_weights))
+        mu_law = vocoder._pick(None, "mu_law", True)
+        weights = vocoder._loop_args(int8)["weights"]
+        if self.model_kind == "forward":
+            _reject_forward_conditioning(ref_mel, spk_embed)
+            mel = (self._forward_mel(text, 1.0) + 4.0) / 8.0
+            yield from stream_vocode(
+                vocoder.model, (mel[i:i + mel_chunk]
+                                for i in range(0, mel.shape[0], mel_chunk)),
+                chunk_frames=mel_chunk, mu_law=mu_law, seed=seed + 1,
+                int8_weights=int8, weights=weights)
+            return
+        inp, ref, spk = self._stream_inputs(text, ref_mel, spk_embed)
         yield from stream_synthesize(
             self.model, vocoder.model, inp, ref, spk, r=self.r,
             max_length=max_length, mel_chunk=mel_chunk,
-            prenet_dropout=self.prenet_dropout,
-            mu_law=vocoder._pick(None, "mu_law", True), int8_weights=int8,
-            seed=seed, voc_weights=vocoder._loop_args(int8)["weights"])
+            prenet_dropout=self.prenet_dropout, mu_law=mu_law,
+            int8_weights=int8, seed=seed, voc_weights=weights)
 
 
 class VocoderSynthesizer:

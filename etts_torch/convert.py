@@ -12,6 +12,8 @@ its modules after the flax tree, so a key maps mechanically:
   - Conv2d (kh, kw, in, out) -> (out, in, kh, kw)
 
 Raw parameters (GRU ``*_wi``, ``gst_tokens``) keep the flax layout.
+``export_flat`` is the inverse: a port module's weights in that layout;
+``seeded_flat`` draws a module's weights from a seed and exports them so.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["read_flat", "convert", "load_into"]
+__all__ = ["read_flat", "convert", "load_into", "export_flat"]
 
 _KEY_RE = re.compile(r"\['([^']+)'\]")
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
@@ -95,3 +97,57 @@ def load_into(module: torch.nn.Module, src) -> torch.nn.Module:
     """``convert`` then load; returns the module in eval mode."""
     module.load_state_dict(convert(src, module), strict=False)
     return module.eval()
+
+
+_NORMS = (torch.nn.LayerNorm, torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)
+
+
+def export_flat(module: torch.nn.Module) -> dict:
+    """A port module's weights as the flat ``{keystr: float32 ndarray}``
+    dict that ``convert`` reads (BatchNorm running statistics under
+    ``batch_stats:``), kernels in the flax layout: the inverse of
+    ``convert``."""
+    flat = {}
+    for name, t in module.state_dict().items():
+        path, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(path)
+        key = "".join(f"['{p}']" for p in path.split(".")) if path else ""
+        a = t.detach().cpu().float().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            flat[f"batch_stats:{key}['{leaf[len('running_'):]}']"] = a
+        elif leaf == "weight" and isinstance(owner, torch.nn.Embedding):
+            flat[key + "['embedding']"] = a
+        elif leaf == "weight" and isinstance(owner, _NORMS):
+            flat[key + "['scale']"] = a
+        elif leaf == "weight":
+            # torch (out, in, *k) -> flax (*k, in, out)
+            flat[key + "['kernel']"] = a.transpose(*range(2, a.ndim), 1, 0)
+        else:
+            flat[f"{key}['{leaf}']"] = a
+    return flat
+
+
+def seeded_flat(module: torch.nn.Module, seed: int,
+                std_1d: float = 0.02) -> dict:
+    """Draw every parameter and BatchNorm statistic of a port module in
+    place from a CPU torch generator seeded with ``seed``, and return them
+    as ``export_flat`` does: matrices and kernels (embeddings, GRU and
+    style tokens too) normal with std 1 / sqrt(fan in), other 1-D
+    parameters normal ``std_1d``, norm scales 1 + that, running means
+    normal 0.1, running variances uniform in [0.5, 1.5]."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, x in module.state_dict(keep_vars=True).items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            if name.endswith("running_var"):
+                x.copy_(0.5 + torch.rand(x.shape, generator=g))
+                continue
+            std = (x[0].numel() ** -0.5 if x.dim() > 1
+                   else 0.1 if name.endswith("running_mean") else std_1d)
+            noise = torch.randn(x.shape, generator=g) * std
+            scale = name.endswith("weight") and x.dim() == 1
+            x.copy_(1.0 + noise if scale else noise)
+    return export_flat(module)

@@ -1,7 +1,8 @@
 """AutoregressiveTransformer inference (port of
 ``etts/models/autoregressive.py``): ``encode`` with the four conditioning
-modes, ``decode_step`` with per-block KV caches and precomputed
-cross-attention K/V, and the greedy ``autoregressive_predict`` with the
+modes and the optional prosody statistics, ``decode_step`` with per-block
+KV caches, precomputed cross-attention K/V and the conv blocks' rolling
+input windows, and the greedy ``autoregressive_predict`` with the
 stop-on-any-of-r-frames rule and the two runaway guards.
 """
 from __future__ import annotations
@@ -13,7 +14,8 @@ import torch.nn as nn
 
 from ..ops.masking import encoder_padding_mask, mel_padding_mask
 from .layers import (CrossAttentionBlocks, DecoderPrenet, Postnet,
-                     ReferenceEncoderGST, SelfAttentionBlocks)
+                     ProsodyStatEncoder, ReferenceEncoderGST,
+                     SelfAttentionBlocks)
 
 SYSTEM_TYPES = ("text", "style_text", "speaker_text", "speaker_style_text")
 
@@ -40,9 +42,14 @@ class AutoregressiveTransformer(nn.Module):
                  ref_encoder_gru_cell_units: int = 128,
                  gst_style_embed_dim: int = 256, gst_multi_num_heads: int = 4,
                  gst_heads: int = 10, speaker_embed_dim: int = 256,
+                 encoder_attention_conv_filters: int = 256,
+                 decoder_attention_conv_filters: int = 256,
+                 encoder_attention_conv_kernel: int = 3,
+                 decoder_attention_conv_kernel: int = 3,
                  encoder_feed_forward_dimension: int = 1024,
                  decoder_feed_forward_dimension: int = 1024,
-                 max_r: int = 10):
+                 max_r: int = 10, use_prosody_stats: bool = False,
+                 prosody_embed_dim: int = 32):
         super().__init__()
         if system_type not in SYSTEM_TYPES:
             raise ValueError(f"system_type must be one of {SYSTEM_TYPES}")
@@ -58,12 +65,14 @@ class AutoregressiveTransformer(nn.Module):
         self.postnet_conv_layers = postnet_conv_layers
         self.postnet_kernel_size = postnet_kernel_size
         self.max_r = max_r
+        self.use_prosody_stats = use_prosody_stats
 
         self.TextEmbedding = nn.Embedding(vocab_size, encoder_prenet_dimension)
         self.TextEncoder = SelfAttentionBlocks(
             encoder_model_dimension, encoder_feed_forward_dimension,
             encoder_num_heads, encoder_maximum_position_encoding,
-            encoder_dense_blocks)
+            encoder_dense_blocks, encoder_attention_conv_filters,
+            encoder_attention_conv_kernel)
         enc_dim = encoder_model_dimension
         if self.has_style:
             self.RefEncoderGST = ReferenceEncoderGST(
@@ -71,6 +80,9 @@ class AutoregressiveTransformer(nn.Module):
                 ref_encoder_filters, ref_encoder_gru_cell_units,
                 gst_style_embed_dim, gst_multi_num_heads, gst_heads)
             enc_dim += gst_style_embed_dim
+            if use_prosody_stats:
+                self.ProsodyStats = ProsodyStatEncoder(prosody_embed_dim)
+                enc_dim += prosody_embed_dim
         if self.has_speaker:
             enc_dim += speaker_embed_dim
         self.DecoderPrenet = DecoderPrenet(
@@ -78,7 +90,8 @@ class AutoregressiveTransformer(nn.Module):
         self.Decoder = CrossAttentionBlocks(
             decoder_model_dimension, decoder_feed_forward_dimension,
             decoder_num_heads, decoder_maximum_position_encoding,
-            decoder_dense_blocks, enc_dim)
+            decoder_dense_blocks, enc_dim, decoder_attention_conv_filters,
+            decoder_attention_conv_kernel)
         self.FinalProj = nn.Linear(decoder_model_dimension,
                                    mel_channels * max_r)
         self.Postnet = Postnet(mel_channels, postnet_conv_filters,
@@ -93,8 +106,10 @@ class AutoregressiveTransformer(nn.Module):
         return self.system_type in ("speaker_text", "speaker_style_text")
 
     def encode(self, inputs, ref_mel=None, spk_embed=None):
-        """Text encoding concatenated with the tiled GST and/or speaker
-        embeddings (`autoregressive.py:142-172`). Returns the tuple of
+        """Text encoding concatenated with the tiled GST (and, with
+        ``use_prosody_stats``, the reference mel's prosody statistics)
+        and/or speaker embeddings (`autoregressive.py:142-172`). Returns the
+        tuple of
         etts' ``encode``: (enc_output, cross_mask, text_attn, gst_attn,
         gst_tokens, gst_output, text_enc_output), the three GST entries None
         without a style encoder; the cross mask is recomputed from the dense
@@ -107,6 +122,8 @@ class AutoregressiveTransformer(nn.Module):
         if self.has_style:
             gst_out, gst_attn, gst_tokens = self.RefEncoderGST(ref_mel)
             parts.append(gst_out.expand(-1, n, -1))
+            if self.use_prosody_stats:
+                parts.append(self.ProsodyStats(ref_mel).expand(-1, n, -1))
         if self.has_speaker:
             parts.append(spk_embed.expand(-1, n, -1))
         enc = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
@@ -130,13 +147,20 @@ class AutoregressiveTransformer(nn.Module):
         return out
 
     def init_caches(self, enc_output, max_steps: int):
+        """Each decoder block's zero self-attention KV cache (b, h,
+        max_steps, depth) and cross-attention K/V; a conv block also gets
+        its zero window of 2 * (kernel - 1) past block inputs
+        (`autoregressive.py:310-326`)."""
         b = enc_output.shape[0]
         d = self.decoder_model_dimension
+        rf = 2 * (self.Decoder.conv_kernel - 1)
         caches = []
-        for h, (ck, cv) in zip(self.decoder_num_heads,
-                               self.cross_kv(enc_output)):
+        for i, (h, (ck, cv)) in enumerate(zip(self.decoder_num_heads,
+                                              self.cross_kv(enc_output))):
             z = enc_output.new_zeros(b, h, max_steps, d // h)
             caches.append({"k": z, "v": z.clone(), "ck": ck, "cv": cv})
+            if i >= self.decoder_dense_blocks:
+                caches[-1]["conv"] = enc_output.new_zeros(b, rf, d)
         return caches
 
     def decode_step(self, new_frame, enc_output, cross_mask, caches,
@@ -144,7 +168,7 @@ class AutoregressiveTransformer(nn.Module):
                     generator=None):
         """One incremental step: new_frame (b, 1, mel) -> (mel_linear
         (b, r, mel), last block's cross-attention (b, h, 1, n_enc)).
-        The caches are updated in place."""
+        The caches (each a dict of ``init_caches``) are updated in place."""
         x = self.DecoderPrenet(new_frame, prenet_dropout, generator=generator)
         x, w = self.Decoder.step(x, enc_output, cross_mask, caches, index, r)
         mel = self.FinalProj(x)[:, :, :r * self.mel_channels]

@@ -7,7 +7,7 @@ Behaviour kept from the reference (SURVEY §2.7):
   - the MHA output projection takes concat([query_input, attention])
   - DecoderPrenet dropout is always on, at a runtime rate
   - positional encodings are r-strided under the reduction factor
-Only the all-dense block stacks are ported; conv attention blocks raise.
+  - a stack runs its dense blocks first, then its conv blocks
 """
 from __future__ import annotations
 
@@ -22,6 +22,9 @@ from ..ops.masking import positional_encoding
 
 LN_EPS = 1e-6
 BN_EPS = 1e-3          # flax BatchNorm(epsilon=1e-3) in CNNResNorm / GST
+
+_ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
+                "linear": lambda x: x}
 
 
 def variable_rate_dropout(x, rate: float, generator=None):
@@ -151,58 +154,114 @@ class CrossAttentionDenseBlock(nn.Module):
         return self.ffn(x), w
 
 
-def _check_all_dense(num_heads: Sequence[int], dense_blocks: int):
-    if dense_blocks != len(num_heads):
-        raise NotImplementedError(
-            "etts_torch ports the all-dense attention stacks only "
-            f"({dense_blocks} dense of {len(num_heads)} blocks)")
+class SelfAttentionConvBlock(nn.Module):
+    """Self-attention, then a 2-layer ``same``-padded relu CNNResNorm with
+    BatchNorm (`layers.py:228-250`; etts builds it with relu only)."""
+
+    def __init__(self, model_dim: int, num_heads: int, conv_filters: int,
+                 kernel_size: int):
+        super().__init__()
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
+        self.conv = CNNResNorm(model_dim, model_dim, 2, conv_filters,
+                               kernel_size, "relu", "relu", padding="same")
+
+    def forward(self, x, mask):
+        x, w = self.sarn(x, mask)
+        return self.conv(x), w
+
+
+class CrossAttentionConvBlock(nn.Module):
+    """Self- and cross-attention, then a 2-layer causal relu CNNResNorm with
+    BatchNorm (`layers.py:358-400`). In the incremental decode the cache's
+    ``conv`` entry holds the 2 * (kernel - 1) block inputs before the new
+    step (zeros before the start); the step convolves [window | new], keeps
+    the last rows, and moves the window on."""
+
+    def __init__(self, model_dim: int, num_heads: int, conv_filters: int,
+                 kernel_size: int, enc_dim: int):
+        super().__init__()
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
+        self.carn = CrossAttentionResnorm(model_dim, num_heads, enc_dim)
+        self.conv = CNNResNorm(model_dim, model_dim, 2, conv_filters,
+                               kernel_size, "relu", "relu", padding="causal")
+
+    def forward(self, x, enc, self_mask, cross_mask, cache=None,
+                cache_index=None):
+        x, _ = self.sarn(x, self_mask, cache, cache_index)
+        kv = None if cache is None else (cache["ck"], cache["cv"])
+        x, w = self.carn(x, enc, cross_mask, kv)
+        if cache is None:
+            return self.conv(x), w
+        window = torch.cat([cache["conv"], x], 1)
+        cache["conv"] = window[:, x.shape[1]:]
+        return self.conv(window)[:, -x.shape[1]:], w
 
 
 class SelfAttentionBlocks(nn.Module):
     """Encoder stack with sqrt(d)-scaled, positionally encoded input
-    (`layers.py:253-304`), as the text encoder. Returns (x, {f"TextEncoder_
-    DenseBlock{i}_SelfAttention": each block's attention weights (b, h, t,
-    t)}), etts' keys for it."""
+    (`layers.py:253-304`): ``dense_blocks`` dense blocks ``SADB_i``, then
+    conv blocks ``SACB_j``. Returns (x, {f"{name_prefix}_DenseBlock{i}_
+    SelfAttention" or f"{name_prefix}_ConvBlock{j}_SelfAttention": each
+    block's attention weights (b, h, t, t)}), numbered from 1, etts' keys."""
 
     def __init__(self, model_dim: int, hidden: int, num_heads: Sequence[int],
-                 max_position: int, dense_blocks: int):
+                 max_position: int, dense_blocks: int, conv_filters: int,
+                 kernel_size: int, name_prefix: str = "TextEncoder"):
         super().__init__()
-        _check_all_dense(num_heads, dense_blocks)
         self.model_dim = model_dim
         self.register_buffer("pos_encoding", torch.from_numpy(
             positional_encoding(max_position, model_dim)[0]), persistent=False)
+        self.attention_keys = {}            # block name -> etts' key
         for i, h in enumerate(num_heads):
-            self.add_module(f"SADB_{i}",
-                            SelfAttentionDenseBlock(model_dim, h, hidden))
-        self.n_blocks = len(num_heads)
+            if i < dense_blocks:
+                name, kind, j = f"SADB_{i}", "DenseBlock", i
+                block = SelfAttentionDenseBlock(model_dim, h, hidden)
+            else:
+                j = i - dense_blocks
+                name, kind = f"SACB_{j}", "ConvBlock"
+                block = SelfAttentionConvBlock(model_dim, h, conv_filters,
+                                               kernel_size)
+            self.add_module(name, block)
+            self.attention_keys[name] = (
+                f"{name_prefix}_{kind}{j + 1}_SelfAttention")
 
     def forward(self, x, padding_mask):
         x = x * (self.model_dim ** 0.5) + self.pos_encoding[:x.shape[1]]
         weights = {}
-        for i in range(self.n_blocks):
-            x, w = getattr(self, f"SADB_{i}")(x, padding_mask)
-            weights[f"TextEncoder_DenseBlock{i + 1}_SelfAttention"] = w
+        for name, key in self.attention_keys.items():
+            x, weights[key] = getattr(self, name)(x, padding_mask)
         return x, weights
 
 
 class CrossAttentionBlocks(nn.Module):
     """Decoder stack: self- and cross-attention per block
-    (`layers.py:403-464`)."""
+    (`layers.py:403-464`), ``dense_blocks`` dense blocks ``CADB_i``, then
+    causal conv blocks ``CACB_j``."""
 
     def __init__(self, model_dim: int, hidden: int, num_heads: Sequence[int],
-                 max_position: int, dense_blocks: int, enc_dim: int):
+                 max_position: int, dense_blocks: int, enc_dim: int,
+                 conv_filters: int, conv_kernel: int):
         super().__init__()
-        _check_all_dense(num_heads, dense_blocks)
         self.model_dim = model_dim
         self.num_heads = tuple(num_heads)
+        self.dense_blocks = dense_blocks
+        self.conv_kernel = conv_kernel
         self.register_buffer("pos_encoding", torch.from_numpy(
             positional_encoding(max_position, model_dim)[0]), persistent=False)
         for i, h in enumerate(num_heads):
-            self.add_module(f"CADB_{i}", CrossAttentionDenseBlock(
-                model_dim, h, hidden, enc_dim))
+            if i < dense_blocks:
+                self.add_module(f"CADB_{i}", CrossAttentionDenseBlock(
+                    model_dim, h, hidden, enc_dim))
+            else:
+                self.add_module(f"CACB_{i - dense_blocks}",
+                                CrossAttentionConvBlock(
+                                    model_dim, h, conv_filters, conv_kernel,
+                                    enc_dim))
 
     def blocks(self):
-        return [getattr(self, f"CADB_{i}") for i in range(len(self.num_heads))]
+        n = self.dense_blocks
+        return [getattr(self, f"CADB_{i}" if i < n else f"CACB_{i - n}")
+                for i in range(len(self.num_heads))]
 
     def step(self, x, enc, cross_mask, caches, index: int, r: int):
         """One incremental step (x: (b, 1, d)) at position ``index * r``.
@@ -229,35 +288,59 @@ class DecoderPrenet(nn.Module):
 
 
 class CNNResNorm(nn.Module):
-    """The postnet's conv stack (`layers.py:58-96` with causal padding,
-    tanh inner and linear last activation, BatchNorm): n_layers causal
-    Conv1D + BatchNorm, then BatchNorm(inputs + stack). Layout (b, t, c) at
-    the interface."""
+    """Conv1D stack with a norm after each conv and a residual
+    (`layers.py:58-96`): n_layers - 1 convs to ``hidden_size``, each
+    normed and passed through ``inner_activation``, a last conv to
+    ``out_size``, normed and passed through ``last_activation``, then
+    norm(inputs + stack). ``padding`` "causal" pads k - 1 steps before,
+    "same" (flax ``SAME``) (k - 1) // 2 before and k // 2 after;
+    ``normalization`` "batch" is BatchNorm (eps 1e-3), "layer" LayerNorm
+    (eps 1e-6). Layout (b, t, c) at the interface."""
 
     def __init__(self, in_size: int, out_size: int, n_layers: int,
-                 hidden_size: int, kernel_size: int):
+                 hidden_size: int, kernel_size: int,
+                 inner_activation: str = "relu",
+                 last_activation: str = "linear", padding: str = "same",
+                 normalization: str = "batch"):
         super().__init__()
+        if normalization not in ("batch", "layer"):
+            raise ValueError("normalization must be layer|batch, got "
+                             f"{normalization}")
         self.n_layers = n_layers
-        self.kernel_size = kernel_size
+        self.kernel_size = k = kernel_size
+        self.pad = ((k - 1, 0) if padding.lower() == "causal"
+                    else ((k - 1) // 2, k // 2))
+        self.inner = _ACTIVATIONS[inner_activation]
+        self.last = _ACTIVATIONS[last_activation]
+        self.layer_norm = normalization == "layer"
+
+        def norm(c):
+            return (nn.LayerNorm(c, eps=LN_EPS) if self.layer_norm
+                    else nn.BatchNorm1d(c, eps=BN_EPS))
         c = in_size
         for i in range(n_layers - 1):
-            self.add_module(f"conv_{i}", nn.Conv1d(c, hidden_size, kernel_size))
-            self.add_module(f"norm_{i}", nn.BatchNorm1d(hidden_size, eps=BN_EPS))
+            self.add_module(f"conv_{i}", nn.Conv1d(c, hidden_size, k))
+            self.add_module(f"norm_{i}", norm(hidden_size))
             c = hidden_size
-        self.last_conv = nn.Conv1d(c, out_size, kernel_size)
-        self.norm_last = nn.BatchNorm1d(out_size, eps=BN_EPS)
-        self.norm_out = nn.BatchNorm1d(out_size, eps=BN_EPS)
+        self.last_conv = nn.Conv1d(c, out_size, k)
+        self.norm_last = norm(out_size)
+        self.norm_out = norm(out_size)
 
-    def _conv(self, conv, x):
-        return conv(F.pad(x, (self.kernel_size - 1, 0)))
+    def _norm(self, norm, x):
+        """x (b, c, t); LayerNorm normalises over c."""
+        if self.layer_norm:
+            return norm(x.transpose(1, 2)).transpose(1, 2)
+        return norm(x)
 
     def forward(self, inputs):
         x = inputs.transpose(1, 2)
         for i in range(self.n_layers - 1):
-            x = torch.tanh(getattr(self, f"norm_{i}")(
-                self._conv(getattr(self, f"conv_{i}"), x)))
-        x = self.norm_last(self._conv(self.last_conv, x))
-        return self.norm_out(inputs.transpose(1, 2) + x).transpose(1, 2)
+            x = getattr(self, f"conv_{i}")(F.pad(x, self.pad))
+            x = self.inner(self._norm(getattr(self, f"norm_{i}"), x))
+        x = self.last(self._norm(self.norm_last,
+                                 self.last_conv(F.pad(x, self.pad))))
+        return self._norm(self.norm_out,
+                          inputs.transpose(1, 2) + x).transpose(1, 2)
 
 
 class Postnet(nn.Module):
@@ -269,7 +352,8 @@ class Postnet(nn.Module):
         super().__init__()
         self.stop_linear = nn.Linear(mel_channels, 3)
         self.conv_blocks = CNNResNorm(mel_channels, mel_channels, conv_layers,
-                                      conv_filters, kernel_size)
+                                      conv_filters, kernel_size, "tanh",
+                                      padding="causal")
 
     def forward(self, x):
         return {"mel_linear": x, "final_output": self.conv_blocks(x),
@@ -327,3 +411,60 @@ class ReferenceEncoderGST(nn.Module):
         bank = torch.tanh(self.gst_tokens)[None].expand(b, -1, -1)
         out, attn = self.mha(bank, bank, ref)
         return out, {"gst_attention": attn}, {"GST_tokens": self.gst_tokens}
+
+
+class DurationPredictor(nn.Module):
+    """A 2-layer ``same``-padded CNNResNorm of kernel 3 with LayerNorm and
+    relu, then a relu Dense(1): a duration in frames per token
+    (`layers.py:572-594`, as the forward model builds it)."""
+
+    def __init__(self, model_dim: int):
+        super().__init__()
+        self.conv_blocks = CNNResNorm(model_dim, model_dim, 2, model_dim, 3,
+                                      "relu", "relu", padding="same",
+                                      normalization="layer")
+        self.linear = nn.Linear(model_dim, 1)
+
+    def forward(self, x):
+        return torch.relu(self.linear(self.conv_blocks(x)))
+
+
+class ProsodyStatEncoder(nn.Module):
+    """Six statistics of the reference mel (TTS layout (b, t, n_mels) in
+    [-4, 4]) over its non-padding frames (max |m| > 1e-3), projected to
+    ``embed_dim`` through tanh (`layers.py:687-746`): the mean and spread
+    of the energy centroid over the lowest min(48, n_mels) bins (a pitch
+    proxy), the mean and spread of the frame's mean log-mel, the frame
+    count, and the centroid's mean movement between valid neighbours, each
+    at etts' scale. Returns (b, 1, embed_dim)."""
+
+    n_centroid_bins = 48
+
+    def __init__(self, embed_dim: int = 32):
+        super().__init__()
+        self.proj = nn.Linear(6, embed_dim)
+
+    def forward(self, mel):
+        m = mel.float()
+        valid = (m.abs().amax(-1) > 1e-3).float()
+        n = valid.sum(-1).clamp(min=1.0)
+
+        def mean_(x):
+            return (x * valid).sum(-1) / n
+
+        def std_(x, mu):
+            return torch.sqrt(mean_((x - mu[:, None]) ** 2) + 1e-6)
+
+        nb = min(self.n_centroid_bins, m.shape[-1])
+        e = torch.exp(m[:, :, :nb])
+        bins = torch.arange(nb, dtype=torch.float32, device=m.device)
+        cent = (e * bins).sum(-1) / e.sum(-1).clamp(min=1e-6)
+        c_mu = mean_(cent)
+        le = m.mean(-1)
+        e_mu = mean_(le)
+        both = valid[:, 1:] * valid[:, :-1]
+        dc = (((cent[:, 1:] - cent[:, :-1]).abs() * both).sum(-1)
+              / both.sum(-1).clamp(min=1.0))
+        feats = torch.stack([c_mu / nb, std_(cent, c_mu) / 12.0, e_mu / 4.0,
+                             std_(le, e_mu) / 2.0, n / 500.0, dc / 8.0], -1)
+        return torch.tanh(self.proj(feats))[:, None]

@@ -8,6 +8,10 @@ process (counterpart of ``synthesize_sentences.py``).
         --ref_wav ref.wav --spk_embed spk.npy --phonemizer_backend grapheme \\
         --sentences "Scientists say they have discovered a new particle."
 
+With ``--model_kind forward`` the TTS config dir's ``forward_config.yaml``
+and a forward-model export give the mel from text alone (no ``--ref_wav``
+or ``--spk_embed``; ``--tts_step`` and the decode guards do not apply).
+
 Writes ``<out_dir>/<i>.wav`` (16-bit PCM) and ``<out_dir>/<i>_mel.npy``
 ((t, n_mels) in [-4, 4]) per sentence. Without ``--voc_config`` and
 ``--voc_weights`` (both or neither), the wav comes from Griffin-Lim
@@ -49,6 +53,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--tts_config", required=True)
     p.add_argument("--tts_weights", required=True, help="flat npz export")
+    p.add_argument("--model_kind", default="autoregressive",
+                   choices=["autoregressive", "forward"],
+                   help="acoustic model family of --tts_weights")
     p.add_argument("--tts_step", type=int, default=0,
                    help="training step of the TTS weights (sets r and the "
                         "prenet dropout from the config's schedules)")
@@ -74,13 +81,16 @@ def main(argv=None):
     if (a.voc_config is None) != (a.voc_weights is None):
         p.error("give --voc_config and --voc_weights together, or neither "
                 "for Griffin-Lim")
+    if a.model_kind == "forward" and (a.ref_wav or a.spk_embed):
+        p.error("a forward model takes no --ref_wav or --spk_embed")
 
     import torch
 
     from .api import TTSSynthesizer, VocoderSynthesizer
     tts = TTSSynthesizer(a.tts_config, a.tts_weights, a.device,
                          step=a.tts_step,
-                         phonemizer_backend=a.phonemizer_backend)
+                         phonemizer_backend=a.phonemizer_backend,
+                         model_kind=a.model_kind)
     voc = (VocoderSynthesizer(a.voc_config, a.voc_weights, a.device)
            if a.voc_config else None)
     sr = tts.config["sampling_rate"]

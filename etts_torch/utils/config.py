@@ -1,6 +1,7 @@
 """Read a config dir (``data_config.yaml`` + ``{kind}_config.yaml``) and build
 the port's models: the counterpart of ``ConfigManager.get_model``
-(``etts/utils/config.py:145-305``) for the AR TTS and WaveRNN families."""
+(``etts/utils/config.py:145-305``) for the AR TTS, forward TTS and WaveRNN
+families."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -10,8 +11,8 @@ import yaml
 
 from ..text import Pipeline
 
-__all__ = ["load_config", "text_pipeline", "build_tts", "build_vocoder",
-           "schedule_values"]
+__all__ = ["load_config", "text_pipeline", "build_tts", "build_forward",
+           "build_vocoder", "schedule_values"]
 
 
 def load_config(config_dir, model_kind: str) -> dict:
@@ -24,16 +25,20 @@ def load_config(config_dir, model_kind: str) -> dict:
     return config
 
 
-def text_pipeline(config: dict, backend: str | None = None) -> Pipeline:
-    """The AR model's text pipeline. The phonemizer backend is
-    ``backend`` or the config's ``phonemizer_backend`` (the one the dataset
-    was built with); with neither, this raises."""
+def text_pipeline(config: dict, backend: str | None = None,
+                  model_kind: str = "autoregressive") -> Pipeline:
+    """The TTS model's text pipeline: start and end tokens for the AR
+    model, none for the forward model (``ConfigManager.get_text_pipeline``).
+    The phonemizer backend is ``backend`` or the config's
+    ``phonemizer_backend`` (the one the dataset was built with); with
+    neither, this raises."""
     backend = backend or config.get("phonemizer_backend")
     if backend is None:
         raise ValueError("no phonemizer backend: pass one or set "
                          "phonemizer_backend in data_config.yaml")
     return Pipeline.default_pipeline(
-        config["phoneme_language"], add_start_end=True,
+        config["phoneme_language"],
+        add_start_end=model_kind == "autoregressive",
         with_stress=config.get("with_stress", False), backend=backend)
 
 
@@ -59,10 +64,12 @@ def _step_function(step: int, schedule) -> int:
 
 
 def schedule_values(config: dict, step: int) -> dict:
-    """The AR model's inference constants at a training step: reduction
-    factor r and decoder prenet dropout (``ConfigManager.schedule_values``)."""
+    """The TTS model's inference constants at a training step: reduction
+    factor r (1 without a schedule, as for the forward model) and decoder
+    prenet dropout (``ConfigManager.schedule_values``)."""
     return {"reduction_factor": _step_function(
-                step, config["reduction_factor_schedule"]),
+                step, config["reduction_factor_schedule"])
+            if "reduction_factor_schedule" in config else 1,
             "decoder_prenet_dropout": _piecewise_linear(
                 step, config["decoder_prenet_dropout_schedule"])
             if "decoder_prenet_dropout_schedule" in config else 0.0}
@@ -70,8 +77,6 @@ def schedule_values(config: dict, step: int) -> dict:
 
 def build_tts(config: dict, vocab_size: int):
     from ..models.autoregressive import AutoregressiveTransformer
-    if config.get("use_prosody_stats"):
-        raise NotImplementedError("use_prosody_stats is not ported yet")
     c = config
     return AutoregressiveTransformer(
         system_type=c["system_type"],
@@ -99,9 +104,41 @@ def build_tts(config: dict, vocab_size: int):
         gst_multi_num_heads=c["gst_multi_num_heads"],
         gst_heads=c["gst_heads"],
         speaker_embed_dim=c.get("speaker_embed_dim", 256),
+        **_conv_blocks(c),
+        use_prosody_stats=c.get("use_prosody_stats", False),
+        prosody_embed_dim=c.get("prosody_embed_dim", 32),
         max_r=int(np.asarray(c["reduction_factor_schedule"])[0, 1]),
         mel_start_value=c["mel_start_value"],
         vocab_size=vocab_size)
+
+
+def _conv_blocks(c: dict) -> dict:
+    return {k: c[k] for k in (
+        "encoder_attention_conv_filters", "decoder_attention_conv_filters",
+        "encoder_attention_conv_kernel", "decoder_attention_conv_kernel")}
+
+
+def build_forward(config: dict, vocab_size: int):
+    """The forward (duration) model of ``forward_config.yaml``
+    (``etts/utils/config.py:194-215``)."""
+    from ..models.forward import ForwardTransformer
+    c = config
+    return ForwardTransformer(
+        mel_channels=c["mel_channels"],
+        encoder_model_dimension=c["encoder_model_dimension"],
+        decoder_model_dimension=c["decoder_model_dimension"],
+        encoder_num_heads=tuple(c["encoder_num_heads"]),
+        decoder_num_heads=tuple(c["decoder_num_heads"]),
+        encoder_feed_forward_dimension=c["encoder_feed_forward_dimension"],
+        decoder_feed_forward_dimension=c["decoder_feed_forward_dimension"],
+        encoder_maximum_position_encoding=c["encoder_max_position_encoding"],
+        decoder_maximum_position_encoding=c["decoder_max_position_encoding"],
+        encoder_dense_blocks=c["encoder_dense_blocks"],
+        decoder_dense_blocks=c["decoder_dense_blocks"],
+        postnet_conv_filters=c["postnet_conv_filters"],
+        postnet_conv_layers=c["postnet_conv_layers"],
+        postnet_kernel_size=c["postnet_kernel_size"],
+        **_conv_blocks(c), vocab_size=vocab_size)
 
 
 def build_vocoder(config: dict):

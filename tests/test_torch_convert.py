@@ -1,5 +1,6 @@
 """convert.py: flat keystr exports load into the port's modules with every
-key consumed, layouts transposed; unknown, missing or misshapen keys raise."""
+key consumed, layouts transposed; unknown, missing or misshapen keys raise;
+export_flat gives the exports back."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -7,7 +8,7 @@ import pytest
 import torch
 
 from etts.models.wavernn import WaveRNN as JW
-from etts_torch.convert import convert, load_into, read_flat
+from etts_torch.convert import convert, export_flat, load_into, read_flat
 from etts_torch.models.wavernn import WaveRNN as TW
 from torch_parity import ar_pair, flatten, randomize_batch_stats
 
@@ -50,6 +51,21 @@ def test_layouts_transposed():
     bs = variables["batch_stats"]["Postnet"]["conv_blocks"]["norm_0"]
     np.testing.assert_array_equal(
         sd["Postnet.conv_blocks.norm_0.running_var"].numpy(), bs["var"])
+
+
+@pytest.mark.parametrize("model", ["ar", "wavernn"])
+def test_export_flat_inverts_convert(model):
+    """A module loaded from flax variables exports them back: the same
+    keys, layouts and values (BatchNorm statistics included)."""
+    if model == "ar":
+        _, variables, tm = ar_pair("speaker_style_text")
+    else:
+        _, variables, tm = _voc_pair()
+        load_into(tm, flatten(variables))
+    want, got = flatten(variables), export_flat(tm)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_wavernn_every_key_consumed():

@@ -30,5 +30,6 @@ def test_port_imports_no_jax_flax_or_etts():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "etts_torch.api" in modules and len(modules) >= 20
-    assert {"etts_torch.streaming", "etts_torch.ops.griffin_lim"} <= set(
+    assert {"etts_torch.streaming", "etts_torch.ops.griffin_lim",
+            "etts_torch.models.forward", "etts_torch.ops.expand"} <= set(
         modules)

@@ -2,6 +2,7 @@
 build the same tiny model in flax and in ``etts_torch`` from one set of
 params, carried over through the exported flat-npz layout."""
 import functools
+import re
 from pathlib import Path
 
 import jax
@@ -10,7 +11,7 @@ import numpy as np
 import torch
 import yaml
 
-from etts_torch.convert import load_into
+from etts_torch.convert import load_into, seeded_flat
 
 # the models here are tiny; two threads per test process keep parallel
 # test workers from crowding the CPU that the timing tests measure on
@@ -110,6 +111,27 @@ def ar_pair(system_type="text", seed=0, batch_stats=True, **over):
     return jm, variables, tm
 
 
+def unflatten(flat: dict) -> dict:
+    """The flat ``keystr`` dict -> flax variables {'params', and
+    'batch_stats' where it has any}: the inverse of ``flatten``."""
+    out = {}
+    for key, a in flat.items():
+        col = "batch_stats" if key.startswith("batch_stats:") else "params"
+        node = out.setdefault(col, {})
+        *path, leaf = re.findall(r"\['([^']+)'\]",
+                                 key.removeprefix("batch_stats:"))
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = jnp.asarray(a)
+    return out
+
+
+def seeded_variables(module, seed=0) -> dict:
+    """Seed a port module in place (``seeded_flat``, 1-D parameters normal
+    0.1) and return its weights as flax variables, with no flax init."""
+    return unflatten(seeded_flat(module, seed, std_1d=0.1))
+
+
 def t(x, dtype=None):
     """numpy / jax array -> torch tensor (CPU)."""
     return torch.from_numpy(np.array(x, dtype=dtype))
@@ -160,6 +182,15 @@ TTS_SMALL = dict(
     ref_encoder_filters=[4, 8], ref_encoder_gru_cell_units=8,
     gst_style_embed_dim=16, gst_multi_num_heads=2, gst_heads=5,
     reduction_factor_schedule=[[0, 2], [80000, 1]])
+# the forward model: one dense and one conv block in the encoder and in
+# the decoder, a capacity of 96 frames
+FWD_SMALL = dict(
+    decoder_model_dimension=32, encoder_model_dimension=32,
+    decoder_num_heads=[2, 2], encoder_num_heads=[2, 2],
+    encoder_feed_forward_dimension=48, decoder_feed_forward_dimension=48,
+    encoder_attention_conv_filters=24, decoder_attention_conv_filters=20,
+    postnet_conv_filters=16, postnet_conv_layers=3, postnet_kernel_size=3,
+    encoder_dense_blocks=1, decoder_dense_blocks=1, max_frames=96)
 VOC_SMALL = dict(voc_mode="RAW", voc_rnn_dims=16, voc_fc_dims=16,
                  voc_compute_dims=8, voc_res_out_dims=8, voc_res_blocks=2,
                  voc_target=600, voc_overlap=50)
@@ -179,26 +210,44 @@ def _jit_init(model, kind):
         k, jnp.zeros((1, 4 * 200)), jnp.zeros((1, 8, 80)))
 
 
-def small_workspace(d: Path) -> dict:
-    """Config dir ``d`` of configs/default shrunk by TTS_SMALL and
-    VOC_SMALL, the flat npz exports of one init of each model (the vocoder
+def _seeded_forward(d: Path) -> dict:
+    """The forward model of config dir ``d`` on seeded port weights
+    (drawn as ``seeded_variables`` draws them, seed 0; no flax init to
+    compile), the duration head's bias 1 frame, as flax variables."""
+    from etts_torch.utils.config import (build_forward, load_config,
+                                         text_pipeline)
+    cfg = load_config(d, "forward")
+    vocab = text_pipeline(cfg, "grapheme", "forward").tokenizer.vocab_size
+    flat = seeded_flat(build_forward(cfg, vocab), 0, std_1d=0.1)
+    flat["['dur_pred']['linear']['bias']"][:] = 1.0
+    return unflatten(flat)
+
+
+def small_workspace(d: Path, kinds=("autoregressive", "wavernn")) -> dict:
+    """Config dir ``d`` of configs/default shrunk by TTS_SMALL, FWD_SMALL
+    and VOC_SMALL, the flat npz exports of one init of each model of
+    ``kinds`` (the forward model's from ``_seeded_forward``; the vocoder
     a near-delta RAW categorical, so its sampling is an argmax), a seeded
-    reference wav and speaker vector. Returns {'dir', 'autoregressive',
-    'wavernn' ((ConfigManager, flax model, variables) each), 'wav',
-    'spk'}."""
+    reference wav and speaker vector. Returns {'dir', one (ConfigManager,
+    flax model, variables) under each kind, 'wav', 'spk'}."""
     from etts.utils.config import ConfigManager
-    for kind, over in (("autoregressive", TTS_SMALL), ("wavernn", VOC_SMALL),
-                       ("data", {"phonemizer_backend": "grapheme",
-                                 "log_directory": str(d / "logs")})):
+    small = {"autoregressive": TTS_SMALL, "forward": FWD_SMALL,
+             "wavernn": VOC_SMALL}
+    for kind, over in [(k, small[k]) for k in kinds] + [
+            ("data", {"phonemizer_backend": "grapheme",
+                      "log_directory": str(d / "logs")})]:
         cfg = yaml.safe_load(open(ROOT / "configs/default" /
                                   f"{kind}_config.yaml"))
         cfg.update(over)
         yaml.safe_dump(cfg, open(d / f"{kind}_config.yaml", "w"))
     out = {"dir": d}
-    for kind in ("autoregressive", "wavernn"):
+    for kind in kinds:
         cm = ConfigManager(str(d), kind)
         model = cm.get_model(ignore_hash=True)
-        variables = dict(_jit_init(model, kind))
+        if kind == "forward":
+            variables = _seeded_forward(d)
+        else:
+            variables = dict(_jit_init(model, kind))
         if kind == "wavernn":   # near-delta categorical: argmax sampling
             p = {k: dict(v) if hasattr(v, "items") else v
                  for k, v in variables["params"].items()}
