@@ -78,7 +78,16 @@ Phases (any failure exits non-zero and prints no result line):
      bit, and the second chunk at one row against the plain version from
      the first chunk's state, on seeded weights); then a conv-decoder AR
      model with prosody statistics: no fused decode, its chunked
-     stream_mels against autoregressive_predict, bit for bit.
+     stream_mels against autoregressive_predict, bit for bit;
+  9. training (train_phase): configs/default's AR model at full width and
+     depth with the MINE zoo, on a seeded corpus the phase writes; one
+     train step on the card against the CPU from the same init and batch
+     (TRAIN_LOSS_TOL, TRAIN_GRAD_RTOL); the driver
+     ``python -m etts_torch.train_autoregressive`` for 20 steps, then
+     resumed to 30; its step and zoo times, target frames a second and
+     peak memory; the trained BatchNorm statistics moved; the step-30
+     weights exported and served through TTSSynthesizer: one fused decode
+     launch, its mel within DECODE_TOL of the plain decode.
 
 Each entry of the kernels line counts the launches of the run it
 describes (the main path's, or the serving run's in its mode), and lists
@@ -162,6 +171,19 @@ FWD_FRAMES_PER_TOKEN = 12.0
 FWD_STREAM_TEXT = "Hello there."
 FWD_STREAM_CHUNK = 40      # frames a vocoder chunk, 0.5 s, as phase 7's
 CONV_MAX_LENGTH = 200
+# phase 9: the card's train step against the CPU's from the same weights
+# and batch (float32, TF32 off): the loss relative, each gradient
+# ||d|| <= RTOL * ||g|| + ATOL (ATOL for the gradients that are zero in
+# exact arithmetic, a key bias under the softmax and a conv bias before a
+# BatchNorm on batch statistics, which rounding leaves at noise); the
+# driver's steps, the first run's and the resumed one's; the trained
+# export's decode length
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_GRAD_ATOL = 1e-6
+TRAIN_STEPS = (20, 30)
+TRAIN_CORPUS = 64
+TRAIN_MAX_LENGTH = 200
 
 
 def card() -> str:
@@ -888,6 +910,305 @@ def forward_phase(cl, voc, ref_mel, spk, seeded, failures):
     return paths
 
 
+def write_corpus(d: Path, n: int, seed: int = 0):
+    """A corpus in create_dataset.py's layout: ``train_metafile.txt``
+    (``id|text|phonemes``), ``mels/{id}.npy`` (t, 80) in [-4, 4] with t in
+    120-1000 (1.5-12.5 s at a 12.5 ms hop), ``spk_embeds/{id}.npy`` (256,),
+    15-110 phoneme symbols an utterance; smooth seeded mels (slow sinusoids
+    over time and frequency plus noise)."""
+    import numpy as np
+    from etts_torch.text.symbols import _phonemes
+    rng = np.random.default_rng(seed)
+    (d / "mels").mkdir(parents=True, exist_ok=True)
+    (d / "spk_embeds").mkdir(exist_ok=True)
+    alpha = sorted(_phonemes)
+    lines = []
+    for i in range(n):
+        t = int(rng.integers(120, 1001))
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        f = np.arange(80)[None] / 80.0
+        tt = np.arange(t)[:, None] / 100.0
+        mel = (2.5 * np.sin(2 * np.pi * (0.7 * tt + f) + ph[0])
+               * np.cos(2 * np.pi * 2 * f + ph[1])
+               - 1.0 + 0.3 * rng.standard_normal((t, 80)))
+        np.save(d / "mels" / f"utt{i:03d}.npy",
+                np.clip(mel, -4, 4).astype(np.float32))
+        spk = rng.standard_normal(256).astype(np.float32)
+        np.save(d / "spk_embeds" / f"utt{i:03d}.npy", spk / np.linalg.norm(spk))
+        phon = "".join(rng.choice(alpha, int(rng.integers(15, 111))))
+        lines.append(f"utt{i:03d}|Utterance number {i}.|{phon}\n")
+    (d / "train_metafile.txt").write_text("".join(lines))
+
+
+def step_split(cl, model, host, r, c, reps=5):
+    """Where a train step's time goes, on the card: ``reps`` Adam steps of
+    ``model`` on the batch ``host`` (after 2 warm-up steps), each split by
+    the host clock, synchronised, into the gradient (``torch.autograd.grad``),
+    the Adam update and the rest (the forward pass and the losses); then 3
+    steps under ``torch.profiler``: the device's busy time (the sum of the
+    kernels' times) over the profiled and over the unprofiled step, the
+    kernels a step, and the five kernels that take the most device
+    time."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from etts_torch.train.state import TrainState
+    from etts_torch.train.steps import make_autoregressive_train_step
+    from etts_torch.train_autoregressive import to_device
+    sync = torch.cuda.synchronize
+    state = TrainState(model, c["learning_rate_tts_schedule"])
+    step = make_autoregressive_train_step(model,
+                                          stop_scaling=c["stop_loss_scaling"])
+    batch = to_device(host, "cuda")
+    split = {"grad": 0.0, "adam": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            split[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    run = lambda: step(state, batch, 0.0, 0, r=r, prenet_dropout=0.0)
+    for _ in range(2):
+        run()
+    grad = torch.autograd.grad
+    state.apply_gradients = timed(state.apply_gradients, "adam")
+    rows = []
+    try:
+        torch.autograd.grad = timed(grad, "grad")
+        for _ in range(reps):
+            split.update(grad=0.0, adam=0.0)
+            sync()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            total = time.perf_counter() - t0
+            rows.append((total, split["grad"], split["adam"]))
+    finally:
+        torch.autograd.grad = grad
+    del state.apply_gradients
+    med = [statistics.median(x) * 1e3 for x in zip(*rows)]
+    say(cl, f"train step split (median of {reps}, host clock, synchronised "
+            f"around each part): {med[0]:.2f} ms = forward and losses "
+            f"{med[0] - med[1] - med[2]:.2f} + gradient {med[1]:.2f} + Adam "
+            f"{med[2]:.2f}")
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run()
+        sync()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    # device-side events, not the annotation ranges the profiler also
+    # puts on the device's timeline (``Optimizer.step#Adam.step``)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and "#" not in e.name]
+    busy = sum(e.device_time for e in kernels) / 3 / 1e3
+    if not kernels:
+        say(cl, "train step under torch.profiler: no device time recorded "
+                "(device busy share not measured)")
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 3 / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    say(cl, f"train step under torch.profiler (3 steps): {wall:.2f} ms/step "
+            f"wall, device busy {busy:.2f} ms/step ({busy / wall:.1%} of it, "
+            f"{busy / med[0]:.1%} of the unprofiled step), "
+            f"{len(kernels) / 3:.0f} kernels a step; most device time: "
+            + "; ".join(f"{n[:60]} {t:.2f} ms" for n, t in top))
+
+
+def train_phase(cl, ref_mel, spk, failures):
+    """Phase 9: training configs/default's AR model (d 256, 4 + 4 blocks,
+    FFN 1024, GST, postnet 5 x 256, r = 10 from the schedule,
+    tts_batch_size 8) with ``use_mine`` and the three default pairs (KL,
+    the first-order critic) on a seeded corpus of TRAIN_CORPUS utterances
+    (``write_corpus``). Cut for the smoke test: mine_batch_size_schedule
+    [[0, 8]] (from 256: the corpus holds 64), weights_save_frequency and
+    prediction_frequency 10 (from 10 000), prediction_start_step 0 (from
+    20 000). Failed checks go to ``failures``; returns the launches of the
+    trained export's decode ({"train_serve": read_launches()})."""
+    import shutil
+    import statistics
+    import numpy as np
+    import torch
+    import yaml
+    from etts_torch.api import TTSSynthesizer
+    from etts_torch.convert import export_flat
+    from etts_torch.data.dataset import DataPrepper, Dataset, load_files
+    from etts_torch.models.init import init_flax
+    from etts_torch.ops.kernels import decoder_step as dstep
+    from etts_torch.text import default_tokenizer
+    from etts_torch.train.state import TrainState
+    from etts_torch.train.steps import make_autoregressive_train_step
+    from etts_torch.train_autoregressive import SEED, to_device
+    from etts_torch.utils.config import ConfigManager, build_tts
+    from etts_torch.utils.logging import read_scalars
+    dev = torch.device("cuda")
+    build = ROOT / "build"
+    corpus, cdir = build / "phase9_corpus", build / "phase9_config"
+    logs = build / "phase9_logs"
+    for x in (corpus, cdir, logs):
+        shutil.rmtree(x, ignore_errors=True)
+    write_corpus(corpus, TRAIN_CORPUS)
+    cdir.mkdir(parents=True)
+    data = yaml.safe_load((CONFIG / "data_config.yaml").read_text())
+    data.update(train_data_directory=str(corpus), log_directory=str(logs))
+    (cdir / "data_config.yaml").write_text(yaml.safe_dump(data))
+    cfg = yaml.safe_load((CONFIG / "autoregressive_config.yaml").read_text())
+    cfg.update(use_mine=True, mine_batch_size_schedule=[[0, 8]],
+               weights_save_frequency=10, prediction_frequency=10,
+               prediction_start_step=0)
+    (cdir / "autoregressive_config.yaml").write_text(yaml.safe_dump(cfg))
+    cm = ConfigManager(cdir, "autoregressive", "phase9")
+    c = cm.config
+    tok = default_tokenizer(True)
+    samples, _ = load_files(corpus / "train_metafile.txt", corpus / "mels",
+                            corpus / "spk_embeds")
+
+    # one step on the card against the CPU, dropout 0, from the same init
+    class Grads(TrainState):
+        def apply_gradients(self, grads):
+            self.grads = [g.detach().cpu() for g in grads]
+            self.step += 1
+
+    host = Dataset(samples, DataPrepper(c, tok), c["tts_batch_size"],
+                   mel_channels=c["mel_channels"]).next_batch()
+    r = c["reduction_factor_schedule"][0][1]
+    runs = {}
+    for where in ("cpu", "cuda"):
+        model = build_tts(dict(c, dropout_rate=0.0), tok.vocab_size)
+        init_flax(model, torch.Generator().manual_seed(SEED)).to(where)
+        state = Grads(model, c["learning_rate_tts_schedule"])
+        t0 = time.perf_counter()
+        met, _ = make_autoregressive_train_step(
+            model, stop_scaling=c["stop_loss_scaling"])(
+            state, to_device(host, where), 0.0, 0, r=r, prenet_dropout=0.0)
+        runs[where] = (float(met["loss"]), state.grads,
+                       time.perf_counter() - t0)
+        n_params = sum(p.numel() for p in model.parameters())
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = runs["cpu"], runs["cuda"]
+    d_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst = max(((float((a - b).norm()) - TRAIN_GRAD_ATOL)
+                 / max(float(b.norm()), 1e-30), n)
+                for n, a, b in zip(state.names, g_gpu, g_cpu))
+    ok = d_loss <= TRAIN_LOSS_TOL and all(
+        float((a - b).norm()) <= TRAIN_GRAD_RTOL * float(b.norm())
+        + TRAIN_GRAD_ATOL for a, b in zip(g_gpu, g_cpu))
+    say(cl, f"train step, card vs CPU (float32, TF32 off, {n_params} "
+            f"parameters, batch {host[0].shape}, r = {r}): loss {l_gpu:.7f} "
+            f"vs {l_cpu:.7f} (relative {d_loss:.2e}, tol {TRAIN_LOSS_TOL}); "
+            f"worst gradient {worst[1]}: (|d| - {TRAIN_GRAD_ATOL}) / |g| "
+            f"{worst[0]:.2e} (tol {TRAIN_GRAD_RTOL}); first step {s_gpu:.3f} "
+            f"s on the card, {s_cpu:.3f} s on the CPU")
+    if not ok:
+        failures.append("train step, card vs CPU")
+    step_split(cl, model, host, r, c)
+
+    # the driver: 20 steps, then resumed to 30
+    outs = []
+    for steps in TRAIN_STEPS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "etts_torch.train_autoregressive",
+             "--config", str(cdir), "--session_name", "phase9",
+             "--max_steps", str(steps)], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        outs.append(proc.stdout)
+        say(cl, f"train_autoregressive --max_steps {steps}: exit "
+                f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+                + " | ".join(proc.stdout.strip().splitlines()[-4:]))
+        if proc.returncode:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            failures.append(f"train_autoregressive --max_steps {steps}")
+            return {}
+    if f"restored TTS weights at step {TRAIN_STEPS[0]}" not in outs[1]:
+        failures.append("the resumed run did not restore step 20")
+    sc = read_scalars(cm.log_dir)
+    losses = sc["train/loss"]
+    span = range(5, TRAIN_STEPS[0])
+    step_ms = [sc["time/step_ms"][i] for i in span]
+    frames = sum(sc["meta/target_frames"][i] for i in span)
+    mine_ms = statistics.median(sc["time/mine_ms"][i] for i in span)
+    peak = sc.get("meta/max_memory_allocated", {})
+    if sorted(peak) != [n - 1 for n in TRAIN_STEPS]:
+        failures.append("the driver logged no peak memory")
+    say(cl, f"training, steps 5-{TRAIN_STEPS[0]} (host clock, synchronised):"
+            f" median {statistics.median(step_ms):.2f} ms/step (min "
+            f"{min(step_ms):.2f}, max {max(step_ms):.2f}); "
+            f"{frames / sum(step_ms) * 1e3:.0f} target frames/s; MINE zoo "
+            f"{mine_ms:.2f} ms/step; max_memory_allocated "
+            + ", ".join(f"{v / 2**30:.3f} GiB (run to {k + 1})"
+                        for k, v in sorted(peak.items()))
+            + f"; losses {dict(sorted(losses.items()))}")
+    if not (sorted(losses) == [0, 10, 19, 20, 29]
+            and all(math.isfinite(v) for v in losses.values())):
+        failures.append(f"training losses {losses}")
+
+    # the trained statistics, and the export through the fused decode
+    tree = torch.load(cm.weights_dir / f"ckpt-{TRAIN_STEPS[1]}.pt",
+                      map_location="cpu", weights_only=True)
+    model = build_tts(c, tok.vocab_size)
+    model.load_state_dict(tree["model"])
+    init = {"running_mean": 0.0, "running_var": 1.0}
+    stale = [k for k, v in tree["model"].items()
+             if k.rsplit(".", 1)[-1] in init
+             and bool((v == init[k.rsplit(".", 1)[-1]]).all())]
+    n_bn = sum(k.rsplit(".", 1)[-1] in init for k in tree["model"])
+    say(cl, f"after {tree['step']} steps: {n_bn - len(stale)} of {n_bn} "
+            f"BatchNorm statistics moved from their init")
+    if stale or tree["step"] != TRAIN_STEPS[1]:
+        failures.append(f"BatchNorm statistics at their init: {stale[:4]}")
+    tts = TTSSynthesizer(cdir, export_flat(model), "cuda",
+                         step=TRAIN_STEPS[1], phonemizer_backend="grapheme")
+    zero_launches()
+    out = tts.predict(SENTENCE, ref_mel, spk, max_length=TRAIN_MAX_LENGTH,
+                      seed=0)
+    torch.cuda.synchronize()
+    ran = read_launches()
+    m = tts.model
+    with torch.no_grad():
+        ids = torch.from_numpy(tts.encode_text(SENTENCE))[None].to(dev)
+        ref = m.encode_ref(torch.from_numpy(ref_mel).to(dev), tts.r)
+        enc = m.encode(ids, ref, torch.from_numpy(spk).to(dev)[None, None])[0]
+    w = dstep.decode_weights(m, enc, tts.r, torch.bfloat16)
+    max_steps = TRAIN_MAX_LENGTH // tts.r + 1
+    kw = dict(max_steps=max_steps, prenet_dropout=tts.prenet_dropout)
+    ok = np.isfinite(out["mel"]).all()
+    # as predict decodes, and with the stop off, so that every step runs
+    # the trained postnet
+    for label, stop in (("as predict", True), ("stop off", False)):
+        k_mel, k_len, _ = dstep.fused_decode(w, stop_enabled=stop, **kw)
+        p_mel, p_len, _ = dstep.fused_decode_plain(w, teacher=k_mel,
+                                                   stop_enabled=stop, **kw)
+        n = max(k_len, p_len)
+        err = float((k_mel[:n] - p_mel[:n]).abs().max())
+        say(cl, f"trained export, fused_decode vs plain ({label}): length "
+                f"{k_len} vs {p_len}, max |dmel| {err:.3e} (tol "
+                f"{DECODE_TOL})")
+        ok = ok and k_len == p_len and err <= DECODE_TOL
+        if stop:
+            same = np.array_equal(out["mel"], k_mel[:k_len].cpu().numpy())
+        else:
+            ok = ok and k_len == max_steps * tts.r
+    say(cl, f"trained export (step {TRAIN_STEPS[1]}, r = {tts.r}, prenet "
+            f"dropout {tts.prenet_dropout}): predict -> {out['mel'].shape[0]}"
+            f" frames in {out['steps']} steps, launches {ran}; predict's mel "
+            f"is the kernel's: {same}")
+    want = {k: int(k == "fused_decode") for k in ran}
+    if not (ok and ran == want and same):
+        failures.append("the trained export through the fused decode")
+    return {"train_serve": ran}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1468,6 +1789,11 @@ def main() -> int:
     paths |= forward_phase(cl, voc, ref_mel, spk,
                            {None: rand_mol, "int8": rand_mol8}, failures)
     say(cl, f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. training, and the trained weights through the fused decode ----
+    t0 = time.perf_counter()
+    paths |= train_phase(cl, ref_mel, spk, failures)
+    say(cl, f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "fused_decode", "route": "cuda",

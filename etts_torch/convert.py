@@ -106,13 +106,14 @@ def export_flat(module: torch.nn.Module) -> dict:
     """A port module's weights as the flat ``{keystr: float32 ndarray}``
     dict that ``convert`` reads (BatchNorm running statistics under
     ``batch_stats:``), kernels in the flax layout: the inverse of
-    ``convert``."""
+    ``convert``. The arrays are copies: training the module on leaves
+    them as they were."""
     flat = {}
     for name, t in module.state_dict().items():
         path, _, leaf = name.rpartition(".")
         owner = module.get_submodule(path)
         key = "".join(f"['{p}']" for p in path.split(".")) if path else ""
-        a = t.detach().cpu().float().numpy()
+        a = t.detach().cpu().float().numpy().copy()
         if leaf == "num_batches_tracked":
             continue
         if leaf in ("running_mean", "running_var"):

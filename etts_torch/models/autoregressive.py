@@ -1,9 +1,10 @@
-"""AutoregressiveTransformer inference (port of
-``etts/models/autoregressive.py``): ``encode`` with the four conditioning
-modes and the optional prosody statistics, ``decode_step`` with per-block
-KV caches, precomputed cross-attention K/V and the conv blocks' rolling
-input windows, and the greedy ``autoregressive_predict`` with the
-stop-on-any-of-r-frames rule and the two runaway guards.
+"""AutoregressiveTransformer (port of ``etts/models/autoregressive.py``):
+``encode`` with the four conditioning modes and the optional prosody
+statistics, the teacher-forced ``forward`` / ``decode`` that training runs,
+``decode_step`` with per-block KV caches, precomputed cross-attention K/V
+and the conv blocks' rolling input windows, and the greedy
+``autoregressive_predict`` with the stop-on-any-of-r-frames rule and the
+two runaway guards.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.masking import encoder_padding_mask, mel_padding_mask
+from ..ops.masking import (encoder_padding_mask, look_ahead_mask,
+                           mel_padding_mask)
 from .layers import (CrossAttentionBlocks, DecoderPrenet, Postnet,
                      ProsodyStatEncoder, ReferenceEncoderGST,
                      SelfAttentionBlocks)
@@ -49,7 +51,7 @@ class AutoregressiveTransformer(nn.Module):
                  encoder_feed_forward_dimension: int = 1024,
                  decoder_feed_forward_dimension: int = 1024,
                  max_r: int = 10, use_prosody_stats: bool = False,
-                 prosody_embed_dim: int = 32):
+                 prosody_embed_dim: int = 32, dropout_rate: float = 0.1):
         super().__init__()
         if system_type not in SYSTEM_TYPES:
             raise ValueError(f"system_type must be one of {SYSTEM_TYPES}")
@@ -72,7 +74,7 @@ class AutoregressiveTransformer(nn.Module):
             encoder_model_dimension, encoder_feed_forward_dimension,
             encoder_num_heads, encoder_maximum_position_encoding,
             encoder_dense_blocks, encoder_attention_conv_filters,
-            encoder_attention_conv_kernel)
+            encoder_attention_conv_kernel, dropout_rate=dropout_rate)
         enc_dim = encoder_model_dimension
         if self.has_style:
             self.RefEncoderGST = ReferenceEncoderGST(
@@ -91,7 +93,7 @@ class AutoregressiveTransformer(nn.Module):
             decoder_model_dimension, decoder_feed_forward_dimension,
             decoder_num_heads, decoder_maximum_position_encoding,
             decoder_dense_blocks, enc_dim, decoder_attention_conv_filters,
-            decoder_attention_conv_kernel)
+            decoder_attention_conv_kernel, dropout_rate=dropout_rate)
         self.FinalProj = nn.Linear(decoder_model_dimension,
                                    mel_channels * max_r)
         self.Postnet = Postnet(mel_channels, postnet_conv_filters,
@@ -105,7 +107,10 @@ class AutoregressiveTransformer(nn.Module):
     def has_speaker(self) -> bool:
         return self.system_type in ("speaker_text", "speaker_style_text")
 
-    def encode(self, inputs, ref_mel=None, spk_embed=None):
+    def encode(self, inputs, ref_mel=None, spk_embed=None,
+               train_text_encoder: bool = False,
+               train_style_encoder: bool = False, drop_n_heads: int = 0,
+               generator=None):
         """Text encoding concatenated with the tiled GST (and, with
         ``use_prosody_stats``, the reference mel's prosody statistics)
         and/or speaker embeddings (`autoregressive.py:142-172`). Returns the
@@ -113,14 +118,18 @@ class AutoregressiveTransformer(nn.Module):
         etts' ``encode``: (enc_output, cross_mask, text_attn, gst_attn,
         gst_tokens, gst_output, text_enc_output), the three GST entries None
         without a style encoder; the cross mask is recomputed from the dense
-        encoder output, so it is effectively all zeros (reference quirk)."""
+        encoder output, so it is effectively all zeros (reference quirk).
+        The train flags put the text and the style encoder in train mode."""
         x = self.TextEmbedding(inputs)
-        text_enc, text_attn = self.TextEncoder(x, encoder_padding_mask(inputs))
+        text_enc, text_attn = self.TextEncoder(
+            x, encoder_padding_mask(inputs), train_text_encoder,
+            drop_n_heads, generator)
         gst_out = gst_attn = gst_tokens = None
         parts = [text_enc]
         n = inputs.shape[1]
         if self.has_style:
-            gst_out, gst_attn, gst_tokens = self.RefEncoderGST(ref_mel)
+            gst_out, gst_attn, gst_tokens = self.encode_style(
+                ref_mel, train_style_encoder, drop_n_heads, generator)
             parts.append(gst_out.expand(-1, n, -1))
             if self.use_prosody_stats:
                 parts.append(self.ProsodyStats(ref_mel).expand(-1, n, -1))
@@ -129,6 +138,68 @@ class AutoregressiveTransformer(nn.Module):
         enc = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
         return (enc, mel_padding_mask(enc), text_attn, gst_attn, gst_tokens,
                 gst_out, text_enc)
+
+    def encode_style(self, targets, train: bool = False,
+                     drop_n_heads: int = 0, generator=None):
+        """The style encoder alone (`autoregressive.py:174-179`; the
+        style-consistency loss re-encodes the predicted mel through it)."""
+        return self.RefEncoderGST(targets, train, drop_n_heads, generator)
+
+    def decode(self, encoder_output, targets, encoder_padding_mask_,
+               train: bool = False, drop_n_heads: int = 0, r: int = 1,
+               prenet_dropout: float = 0.5, generator=None):
+        """Teacher-forced decode of the r-strided decoder input ``targets``
+        (b, T, mel) (`autoregressive.py:181-198`): the prenet, the decoder
+        stack under the look-ahead and padding masks combined, FinalProj's
+        first r * mel columns reshaped to T * r frames, the postnet."""
+        mask = torch.maximum(mel_padding_mask(targets),
+                             look_ahead_mask(targets.shape[1], targets.device))
+        x = self.DecoderPrenet(targets, prenet_dropout, generator)
+        x, attn = self.Decoder(x, encoder_output, mask,
+                               encoder_padding_mask_, r, train, drop_n_heads,
+                               generator)
+        mel = self.FinalProj(x)[:, :, :r * self.mel_channels]
+        b, t = mel.shape[:2]
+        mel = mel.reshape(b, t * r, self.mel_channels)
+        out = self.Postnet(mel, train)
+        out.update({"decoder_attention": attn, "decoder_output": x,
+                    "linear": mel})
+        return out
+
+    def forward(self, inputs, targets, spk_embed=None,
+                train_text_encoder: bool = False,
+                train_style_encoder: bool = False,
+                train_decoder: bool = False, r: int = 1,
+                prenet_dropout: float = 0.5, drop_n_heads: int = 0,
+                style_targets=None, generator=None):
+        """Teacher-forced forward (`autoregressive.py:233-259`): ``encode``
+        (the style encoders read ``style_targets`` where given, else
+        ``targets``), then ``decode``. Returns etts' dict: mel_linear,
+        final_output, stop_prob, decoder_attention, decoder_output,
+        linear, text_encoder_attention, gst_encoder_attention, gst_tokens,
+        gst_output, text_enc_output. Every draw (dropout, HeadDrop, the
+        prenet's) comes from ``generator``."""
+        (enc, cross_mask, text_attn, gst_attn, gst_tokens, gst_out,
+         text_enc) = self.encode(
+            inputs, targets if style_targets is None else style_targets,
+            spk_embed, train_text_encoder, train_style_encoder, drop_n_heads,
+            generator)
+        out = self.decode(enc, targets, cross_mask, train_decoder,
+                          drop_n_heads, r, prenet_dropout, generator)
+        out.update({"text_encoder_attention": text_attn,
+                    "gst_encoder_attention": gst_attn,
+                    "gst_tokens": gst_tokens, "gst_output": gst_out,
+                    "text_enc_output": text_enc})
+        return out
+
+    @staticmethod
+    def input_reshape(mel, stop_prob, r: int):
+        """Teacher-forcing shift and r-stride (`autoregressive.py:266-275`):
+        (tar_real = mel[:, 1:], tar_mel = mel[:, :-1][:, ::r], tar_stop =
+        stop_prob[:, 1:], mel_len = the frames of tar_real)."""
+        tar_inp = mel[:, :-1]
+        return mel[:, 1:], tar_inp[:, 0::r], stop_prob[:, 1:], \
+            tar_inp.shape[1]
 
     @staticmethod
     def encode_ref(ref_mel, r: int):

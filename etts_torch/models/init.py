@@ -1,0 +1,62 @@
+"""Draw a port module's parameters as flax initialises etts' module
+(`etts/utils/config.py:340-351` inits the model the driver trains):
+
+  - Dense and Conv kernels ``lecun_normal``: a normal truncated at 2
+    standard deviations, scaled to variance 1 / fan-in (fan-in: the input
+    width times the kernel's taps);
+  - the GST's GRU input kernel ``lecun_normal``, its recurrent kernel
+    orthogonal, its biases zero; the style tokens a normal truncated at 2,
+    times 0.5;
+  - Embed normal with variance 1 / width (flax's default);
+  - the linear MINE critics (``init_std``): kernels and biases normal 0.05;
+  - other biases zero; norm scales 1, running means 0, running variances 1.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from .layers import ReferenceEncoderGST
+
+__all__ = ["init_flax"]
+
+_TRUNC_STD = 0.87962566103423978   # std of a standard normal cut at +-2
+
+
+def _lecun(x, fan_in: int, g):
+    nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=g)
+    x.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+@torch.no_grad()
+def init_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise ``module`` in place from ``generator`` (a CPU generator,
+    so that every device starts from the same draw); returns it."""
+    g = generator
+    # the linear critics' std reaches every layer inside them
+    std = {id(c): m.init_std for m in module.modules()
+           if hasattr(m, "init_std") for c in m.modules()}
+    for sub in module.modules():
+        normal_std = std.get(id(sub))
+        if isinstance(sub, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            if normal_std is None:
+                _lecun(sub.weight, sub.weight[0].numel(), g)
+                sub.bias.zero_()
+        elif isinstance(sub, nn.Embedding):
+            sub.weight.normal_(0.0, sub.weight.shape[1] ** -0.5, generator=g)
+        elif isinstance(sub, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
+            sub.reset_parameters()
+        elif isinstance(sub, ReferenceEncoderGST):
+            _lecun(sub.gru_wi, sub.gru_wi.shape[0], g)
+            nn.init.orthogonal_(sub.gru_wh, generator=g)
+            sub.gru_bi.zero_()
+            sub.gru_bh.zero_()
+            nn.init.trunc_normal_(sub.gst_tokens, 0.0, 1.0, -2.0, 2.0,
+                                  generator=g)
+            sub.gst_tokens.mul_(0.5)
+        if normal_std is not None:
+            for p in sub.parameters(recurse=False):
+                p.normal_(0.0, normal_std, generator=g)
+    return module

@@ -1,5 +1,4 @@
-"""Transformer-TTS building blocks for inference (port of
-``etts/models/layers.py``).
+"""Transformer-TTS building blocks (port of ``etts/models/layers.py``).
 
 Module and parameter names follow the flax tree (``sarn``, ``carn``, ``mha``,
 ``wq`` ...) so ``etts_torch.convert`` maps exported keys mechanically.
@@ -8,6 +7,12 @@ Behaviour kept from the reference (SURVEY §2.7):
   - DecoderPrenet dropout is always on, at a runtime rate
   - positional encodings are r-strided under the reduction factor
   - a stack runs its dense blocks first, then its conv blocks
+
+Train mode is an explicit ``train`` argument, as in etts, never
+``Module.train()``: etts sets it per sub-stack. Under ``train`` a layer
+applies its dropout (``dropout_rate``), HeadDrop (``drop_n_heads`` heads
+per row) and BatchNorm on the batch's statistics, moving the running ones
+as flax does; the draws come from the ``generator`` passed down.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from ..ops.masking import positional_encoding
 
 LN_EPS = 1e-6
 BN_EPS = 1e-3          # flax BatchNorm(epsilon=1e-3) in CNNResNorm / GST
+BN_MOMENTUM = 0.99     # flax: running = 0.99 * running + 0.01 * batch
 
 _ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
                 "linear": lambda x: x}
@@ -35,6 +41,42 @@ def variable_rate_dropout(x, rate: float, generator=None):
     keep = 1.0 - rate
     u = torch.rand(x.shape, generator=generator, device=x.device)
     return torch.where(u < keep, x / max(keep, 1e-8), torch.zeros_like(x))
+
+
+def dropout(x, rate: float, train: bool, generator=None):
+    """flax ``nn.Dropout``: the identity unless ``train`` (and rate > 0),
+    else ``variable_rate_dropout``."""
+    if not train:
+        return x
+    return variable_rate_dropout(x, rate, generator)
+
+
+def head_drop(x, drop_n: int, scores):
+    """Zero exactly ``drop_n`` heads per batch row and rescale the rest by
+    h / (h - drop_n) (`layers.py:122-133`): x (b, h, t, depth); ``scores``
+    (b, h), uniform draws, drop the heads of the ``drop_n`` lowest."""
+    h = x.shape[1]
+    if h == 1:
+        return x
+    ranks = scores.argsort(-1).argsort(-1)
+    keep = (ranks >= drop_n).to(x.dtype)[:, :, None, None]
+    return x * keep * (h / max(h - drop_n, 1))
+
+
+def batch_norm(bn, x, train: bool):
+    """flax ``BatchNorm`` on x (b, c, ...) with ``bn``'s parameters and
+    running statistics: those statistics unless ``train``; else the batch's
+    (biased variance), and the running ones move by ``BN_MOMENTUM`` under
+    no_grad, as flax's mutable ``batch_stats``."""
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    with torch.no_grad():
+        dims = [0, *range(2, x.dim())]
+        for stat, batch in ((bn.running_mean, x.mean(dims)),
+                            (bn.running_var, x.var(dims, unbiased=False))):
+            stat.mul_(BN_MOMENTUM).add_(batch, alpha=1 - BN_MOMENTUM)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
 def attention(q, k, v, mask=None):
@@ -67,10 +109,13 @@ class MultiHeadAttention(nn.Module):
         return x.view(b, t, self.num_heads, -1).transpose(1, 2)
 
     def forward(self, v, k, q_in, mask=None, kv=None, cache=None,
-                cache_index=None):
+                cache_index=None, train=False, drop_n_heads=0,
+                generator=None):
         """``kv``: precomputed head-split (k, v). ``cache``: {'k','v'}
         (b, h, T, depth) self-attention cache, written in place at
-        ``cache_index`` (q covers one step); attention reads rows <= index."""
+        ``cache_index`` (q covers one step); attention reads rows <= index.
+        Under ``train`` the attention output drops ``drop_n_heads`` heads
+        per row (``head_drop``)."""
         q = self.split(self.wq(q_in))
         if kv is not None:
             k, v = kv
@@ -82,76 +127,102 @@ class MultiHeadAttention(nn.Module):
             k = cache["k"][:, :, :cache_index + 1]
             v = cache["v"][:, :, :cache_index + 1]
         out, w = attention(q, k, v, mask)
-        b, _, tq, _ = out.shape
+        b, h, tq, _ = out.shape
+        if train and drop_n_heads:
+            out = head_drop(out, drop_n_heads, torch.rand(
+                b, h, generator=generator, device=out.device))
         concat = out.transpose(1, 2).reshape(b, tq, self.model_dim)
         return self.dense(torch.cat([q_in, concat], -1)), w
 
 
 class FFNResNorm(nn.Module):
-    """Dense-Dense + LN + relu + LN(x + y) (`layers.py:99-115`)."""
+    """Dense-Dense + LN + relu + dropout + LN(x + y) (`layers.py:99-115`)."""
 
-    def __init__(self, model_dim: int, hidden: int):
+    def __init__(self, model_dim: int, hidden: int, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.d1 = nn.Linear(model_dim, hidden)
         self.d2 = nn.Linear(hidden, model_dim)
         self.ln = nn.LayerNorm(model_dim, eps=LN_EPS)
         self.last_ln = nn.LayerNorm(model_dim, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
         y = torch.relu(self.ln(self.d2(self.d1(x))))
+        y = dropout(y, self.dropout_rate, train, generator)
         return self.last_ln(x + y)
 
 
 class SelfAttentionResNorm(nn.Module):
-    def __init__(self, model_dim: int, num_heads: int):
+    """MHA + LN + dropout + LN(x + out) (`layers.py:190-207`)."""
+
+    def __init__(self, model_dim: int, num_heads: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.mha = MultiHeadAttention(model_dim, num_heads, model_dim,
                                       model_dim)
         self.ln = nn.LayerNorm(model_dim, eps=LN_EPS)
         self.last_ln = nn.LayerNorm(model_dim, eps=LN_EPS)
 
-    def forward(self, x, mask, cache=None, cache_index=None):
+    def forward(self, x, mask, cache=None, cache_index=None, train=False,
+                drop_n_heads=0, generator=None):
         """-> (output, attention weights (b, h, tq, tk))."""
-        attn, w = self.mha(x, x, x, mask, cache=cache, cache_index=cache_index)
-        return self.last_ln(self.ln(attn) + x), w
+        attn, w = self.mha(x, x, x, mask, cache=cache, cache_index=cache_index,
+                           train=train, drop_n_heads=drop_n_heads,
+                           generator=generator)
+        out = dropout(self.ln(attn), self.dropout_rate, train, generator)
+        return self.last_ln(out + x), w
 
 
 class CrossAttentionResnorm(nn.Module):
-    def __init__(self, model_dim: int, num_heads: int, enc_dim: int):
+    """Cross-MHA + dropout + LN(attn + q) (`layers.py:307-323`)."""
+
+    def __init__(self, model_dim: int, num_heads: int, enc_dim: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.mha = MultiHeadAttention(model_dim, num_heads, model_dim, enc_dim)
         self.layernorm = nn.LayerNorm(model_dim, eps=LN_EPS)
 
-    def forward(self, q, enc, mask, kv=None):
-        attn, w = self.mha(enc, enc, q, mask, kv=kv)
+    def forward(self, q, enc, mask, kv=None, train=False, drop_n_heads=0,
+                generator=None):
+        attn, w = self.mha(enc, enc, q, mask, kv=kv, train=train,
+                           drop_n_heads=drop_n_heads, generator=generator)
+        attn = dropout(attn, self.dropout_rate, train, generator)
         return self.layernorm(attn + q), w
 
 
 class SelfAttentionDenseBlock(nn.Module):
-    def __init__(self, model_dim: int, num_heads: int, hidden: int):
+    def __init__(self, model_dim: int, num_heads: int, hidden: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
-        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
-        self.ffn = FFNResNorm(model_dim, hidden)
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads, dropout_rate)
+        self.ffn = FFNResNorm(model_dim, hidden, dropout_rate)
 
-    def forward(self, x, mask):
-        x, w = self.sarn(x, mask)
-        return self.ffn(x), w
+    def forward(self, x, mask, train=False, drop_n_heads=0, generator=None):
+        x, w = self.sarn(x, mask, train=train, drop_n_heads=drop_n_heads,
+                         generator=generator)
+        return self.ffn(x, train, generator), w
 
 
 class CrossAttentionDenseBlock(nn.Module):
     def __init__(self, model_dim: int, num_heads: int, hidden: int,
-                 enc_dim: int):
+                 enc_dim: int, dropout_rate: float = 0.0):
         super().__init__()
-        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
-        self.carn = CrossAttentionResnorm(model_dim, num_heads, enc_dim)
-        self.ffn = FFNResNorm(model_dim, hidden)
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads, dropout_rate)
+        self.carn = CrossAttentionResnorm(model_dim, num_heads, enc_dim,
+                                          dropout_rate)
+        self.ffn = FFNResNorm(model_dim, hidden, dropout_rate)
 
     def forward(self, x, enc, self_mask, cross_mask, cache=None,
-                cache_index=None):
-        x, _ = self.sarn(x, self_mask, cache, cache_index)
+                cache_index=None, train=False, drop_n_heads=0,
+                generator=None):
+        mode = dict(train=train, drop_n_heads=drop_n_heads,
+                    generator=generator)
+        x, _ = self.sarn(x, self_mask, cache, cache_index, **mode)
         kv = None if cache is None else (cache["ck"], cache["cv"])
-        x, w = self.carn(x, enc, cross_mask, kv)
-        return self.ffn(x), w
+        x, w = self.carn(x, enc, cross_mask, kv, **mode)
+        return self.ffn(x, train, generator), w
 
 
 class SelfAttentionConvBlock(nn.Module):
@@ -159,15 +230,16 @@ class SelfAttentionConvBlock(nn.Module):
     BatchNorm (`layers.py:228-250`; etts builds it with relu only)."""
 
     def __init__(self, model_dim: int, num_heads: int, conv_filters: int,
-                 kernel_size: int):
+                 kernel_size: int, dropout_rate: float = 0.0):
         super().__init__()
-        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads, dropout_rate)
         self.conv = CNNResNorm(model_dim, model_dim, 2, conv_filters,
                                kernel_size, "relu", "relu", padding="same")
 
-    def forward(self, x, mask):
-        x, w = self.sarn(x, mask)
-        return self.conv(x), w
+    def forward(self, x, mask, train=False, drop_n_heads=0, generator=None):
+        x, w = self.sarn(x, mask, train=train, drop_n_heads=drop_n_heads,
+                         generator=generator)
+        return self.conv(x, train), w
 
 
 class CrossAttentionConvBlock(nn.Module):
@@ -178,20 +250,24 @@ class CrossAttentionConvBlock(nn.Module):
     the last rows, and moves the window on."""
 
     def __init__(self, model_dim: int, num_heads: int, conv_filters: int,
-                 kernel_size: int, enc_dim: int):
+                 kernel_size: int, enc_dim: int, dropout_rate: float = 0.0):
         super().__init__()
-        self.sarn = SelfAttentionResNorm(model_dim, num_heads)
-        self.carn = CrossAttentionResnorm(model_dim, num_heads, enc_dim)
+        self.sarn = SelfAttentionResNorm(model_dim, num_heads, dropout_rate)
+        self.carn = CrossAttentionResnorm(model_dim, num_heads, enc_dim,
+                                          dropout_rate)
         self.conv = CNNResNorm(model_dim, model_dim, 2, conv_filters,
                                kernel_size, "relu", "relu", padding="causal")
 
     def forward(self, x, enc, self_mask, cross_mask, cache=None,
-                cache_index=None):
-        x, _ = self.sarn(x, self_mask, cache, cache_index)
+                cache_index=None, train=False, drop_n_heads=0,
+                generator=None):
+        mode = dict(train=train, drop_n_heads=drop_n_heads,
+                    generator=generator)
+        x, _ = self.sarn(x, self_mask, cache, cache_index, **mode)
         kv = None if cache is None else (cache["ck"], cache["cv"])
-        x, w = self.carn(x, enc, cross_mask, kv)
+        x, w = self.carn(x, enc, cross_mask, kv, **mode)
         if cache is None:
-            return self.conv(x), w
+            return self.conv(x, train), w
         window = torch.cat([cache["conv"], x], 1)
         cache["conv"] = window[:, x.shape[1]:]
         return self.conv(window)[:, -x.shape[1]:], w
@@ -202,34 +278,43 @@ class SelfAttentionBlocks(nn.Module):
     (`layers.py:253-304`): ``dense_blocks`` dense blocks ``SADB_i``, then
     conv blocks ``SACB_j``. Returns (x, {f"{name_prefix}_DenseBlock{i}_
     SelfAttention" or f"{name_prefix}_ConvBlock{j}_SelfAttention": each
-    block's attention weights (b, h, t, t)}), numbered from 1, etts' keys."""
+    block's attention weights (b, h, t, t)}), numbered from 1, etts' keys.
+    ``reduction_factor`` strides the positional encoding."""
 
     def __init__(self, model_dim: int, hidden: int, num_heads: Sequence[int],
                  max_position: int, dense_blocks: int, conv_filters: int,
-                 kernel_size: int, name_prefix: str = "TextEncoder"):
+                 kernel_size: int, name_prefix: str = "TextEncoder",
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.model_dim = model_dim
+        self.dropout_rate = dropout_rate
         self.register_buffer("pos_encoding", torch.from_numpy(
             positional_encoding(max_position, model_dim)[0]), persistent=False)
         self.attention_keys = {}            # block name -> etts' key
         for i, h in enumerate(num_heads):
             if i < dense_blocks:
                 name, kind, j = f"SADB_{i}", "DenseBlock", i
-                block = SelfAttentionDenseBlock(model_dim, h, hidden)
+                block = SelfAttentionDenseBlock(model_dim, h, hidden,
+                                                dropout_rate)
             else:
                 j = i - dense_blocks
                 name, kind = f"SACB_{j}", "ConvBlock"
                 block = SelfAttentionConvBlock(model_dim, h, conv_filters,
-                                               kernel_size)
+                                               kernel_size, dropout_rate)
             self.add_module(name, block)
             self.attention_keys[name] = (
                 f"{name_prefix}_{kind}{j + 1}_SelfAttention")
 
-    def forward(self, x, padding_mask):
-        x = x * (self.model_dim ** 0.5) + self.pos_encoding[:x.shape[1]]
+    def forward(self, x, padding_mask, train=False, drop_n_heads=0,
+                generator=None, reduction_factor: int = 1):
+        r = reduction_factor
+        x = (x * (self.model_dim ** 0.5)
+             + self.pos_encoding[:x.shape[1] * r:r])
+        x = dropout(x, self.dropout_rate, train, generator)
         weights = {}
         for name, key in self.attention_keys.items():
-            x, weights[key] = getattr(self, name)(x, padding_mask)
+            x, weights[key] = getattr(self, name)(
+                x, padding_mask, train, drop_n_heads, generator)
         return x, weights
 
 
@@ -240,9 +325,11 @@ class CrossAttentionBlocks(nn.Module):
 
     def __init__(self, model_dim: int, hidden: int, num_heads: Sequence[int],
                  max_position: int, dense_blocks: int, enc_dim: int,
-                 conv_filters: int, conv_kernel: int):
+                 conv_filters: int, conv_kernel: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.model_dim = model_dim
+        self.dropout_rate = dropout_rate
         self.num_heads = tuple(num_heads)
         self.dense_blocks = dense_blocks
         self.conv_kernel = conv_kernel
@@ -251,17 +338,37 @@ class CrossAttentionBlocks(nn.Module):
         for i, h in enumerate(num_heads):
             if i < dense_blocks:
                 self.add_module(f"CADB_{i}", CrossAttentionDenseBlock(
-                    model_dim, h, hidden, enc_dim))
+                    model_dim, h, hidden, enc_dim, dropout_rate))
             else:
                 self.add_module(f"CACB_{i - dense_blocks}",
                                 CrossAttentionConvBlock(
                                     model_dim, h, conv_filters, conv_kernel,
-                                    enc_dim))
+                                    enc_dim, dropout_rate))
 
     def blocks(self):
         n = self.dense_blocks
         return [getattr(self, f"CADB_{i}" if i < n else f"CACB_{i - n}")
                 for i in range(len(self.num_heads))]
+
+    def forward(self, x, enc, self_mask, cross_mask, r: int = 1, train=False,
+                drop_n_heads=0, generator=None):
+        """Teacher-forced stack over x (b, T, d) (`layers.py:436-468`): the
+        positional encoding ``pe[::r][:T]``, dropout, each block under
+        ``self_mask`` (look-ahead and padding combined). Returns (x,
+        {"Decoder_DenseBlock{i}_CrossAttention" or
+        "Decoder_ConvBlock{j}_CrossAttention": each block's cross-attention
+        (b, h, T, n_enc)}), numbered from 1, etts' keys."""
+        x = (x * (self.model_dim ** 0.5)
+             + self.pos_encoding[:x.shape[1] * r:r])
+        x = dropout(x, self.dropout_rate, train, generator)
+        weights = {}
+        for i, block in enumerate(self.blocks()):
+            kind, j = (("DenseBlock", i) if i < self.dense_blocks
+                       else ("ConvBlock", i - self.dense_blocks))
+            x, weights[f"Decoder_{kind}{j + 1}_CrossAttention"] = block(
+                x, enc, self_mask, cross_mask, train=train,
+                drop_n_heads=drop_n_heads, generator=generator)
+        return x, weights
 
     def step(self, x, enc, cross_mask, caches, index: int, r: int):
         """One incremental step (x: (b, 1, d)) at position ``index * r``.
@@ -326,21 +433,21 @@ class CNNResNorm(nn.Module):
         self.norm_last = norm(out_size)
         self.norm_out = norm(out_size)
 
-    def _norm(self, norm, x):
+    def _norm(self, norm, x, train):
         """x (b, c, t); LayerNorm normalises over c."""
         if self.layer_norm:
             return norm(x.transpose(1, 2)).transpose(1, 2)
-        return norm(x)
+        return batch_norm(norm, x, train)
 
-    def forward(self, inputs):
+    def forward(self, inputs, train=False):
         x = inputs.transpose(1, 2)
         for i in range(self.n_layers - 1):
             x = getattr(self, f"conv_{i}")(F.pad(x, self.pad))
-            x = self.inner(self._norm(getattr(self, f"norm_{i}"), x))
+            x = self.inner(self._norm(getattr(self, f"norm_{i}"), x, train))
         x = self.last(self._norm(self.norm_last,
-                                 self.last_conv(F.pad(x, self.pad))))
-        return self._norm(self.norm_out,
-                          inputs.transpose(1, 2) + x).transpose(1, 2)
+                                 self.last_conv(F.pad(x, self.pad)), train))
+        return self._norm(self.norm_out, inputs.transpose(1, 2) + x,
+                          train).transpose(1, 2)
 
 
 class Postnet(nn.Module):
@@ -355,8 +462,8 @@ class Postnet(nn.Module):
                                       conv_filters, kernel_size, "tanh",
                                       padding="causal")
 
-    def forward(self, x):
-        return {"mel_linear": x, "final_output": self.conv_blocks(x),
+    def forward(self, x, train=False):
+        return {"mel_linear": x, "final_output": self.conv_blocks(x, train),
                 "stop_prob": self.stop_linear(x)}
 
 
@@ -394,7 +501,7 @@ class ReferenceEncoderGST(nn.Module):
         total = max((out - 1) * self.strides + self.kernel_size - size, 0)
         return total // 2, total - total // 2
 
-    def forward(self, mel):
+    def forward(self, mel, train=False, drop_n_heads=0, generator=None):
         """mel (b, t, n_mels) -> (style embedding (b, 1, gst_style_embed_dim),
         {"gst_attention": the token-bank attention (b, heads, 1, gst_heads)},
         {"GST_tokens": the token parameters (gst_heads, depth)}), as
@@ -404,12 +511,13 @@ class ReferenceEncoderGST(nn.Module):
         for i in range(self.n_conv):
             pt, pm = self._same_pad(x.shape[2]), self._same_pad(x.shape[3])
             x = getattr(self, f"conv_{i}")(F.pad(x, pm + pt))
-            x = torch.relu(getattr(self, f"bn_{i}")(x))
+            x = torch.relu(batch_norm(getattr(self, f"bn_{i}"), x, train))
         x = x.permute(0, 2, 3, 1).reshape(b, x.shape[2], -1)
         _, h = gru_scan(self.gru_wi, self.gru_wh, self.gru_bi, self.gru_bh, x)
         ref = torch.tanh(self.rnn_proj(h))[:, None]
         bank = torch.tanh(self.gst_tokens)[None].expand(b, -1, -1)
-        out, attn = self.mha(bank, bank, ref)
+        out, attn = self.mha(bank, bank, ref, train=train,
+                             drop_n_heads=drop_n_heads, generator=generator)
         return out, {"gst_attention": attn}, {"GST_tokens": self.gst_tokens}
 
 
@@ -445,7 +553,7 @@ class ProsodyStatEncoder(nn.Module):
         self.proj = nn.Linear(6, embed_dim)
 
     def forward(self, mel):
-        m = mel.float()
+        m = mel.detach().float()
         valid = (m.abs().amax(-1) > 1e-3).float()
         n = valid.sum(-1).clamp(min=1.0)
 
@@ -468,3 +576,103 @@ class ProsodyStatEncoder(nn.Module):
         feats = torch.stack([c_mu / nb, std_(cent, c_mu) / 12.0, e_mu / 4.0,
                              std_(le, e_mu) / 2.0, n / 500.0, dc / 8.0], -1)
         return torch.tanh(self.proj(feats))[:, None]
+
+
+# ---------------------------------------------------------------------------
+# MINE / CLUB critic networks (`layers.py:601-684`); ``in_dim`` is the width
+# of the pair they read (flax infers it at init)
+# ---------------------------------------------------------------------------
+
+def _mlp(module, in_dim: int, hidden: Sequence[int], out_dim: int):
+    """relu Dense layers ``fc_i``, then ``fc_proj`` to ``out_dim``."""
+    for i, f in enumerate(hidden):
+        module.add_module(f"fc_{i}", nn.Linear(in_dim, f))
+        in_dim = f
+    module.n_hidden = len(hidden)
+    module.fc_proj = nn.Linear(in_dim, out_dim)
+
+
+def _run_mlp(module, x):
+    for i in range(module.n_hidden):
+        x = torch.relu(getattr(module, f"fc_{i}")(x))
+    return module.fc_proj(x)
+
+
+class MineNetFirstOrder(nn.Module):
+    """relu MLP -> Dense(1) critic (`layers.py:601-610`)."""
+
+    def __init__(self, in_dim: int, dense_hidden_units: Sequence[int]):
+        super().__init__()
+        _mlp(self, in_dim, dense_hidden_units, 1)
+
+    def forward(self, x):
+        return _run_mlp(self, x)
+
+
+class MineNetSecondOrder(nn.Module):
+    """``VALID`` relu Conv1D stack over the ``length`` axis of x (b, length,
+    in_dim) -> flatten -> MLP critic (`layers.py:613-628`)."""
+
+    def __init__(self, in_dim: int, length: int, filters: Sequence[int],
+                 kernel_size: int, dense_hidden_units: Sequence[int]):
+        super().__init__()
+        self.n_conv = len(filters)
+        for i, f in enumerate(filters):
+            self.add_module(f"conv_{i}", nn.Conv1d(in_dim, f, kernel_size))
+            in_dim, length = f, length - kernel_size + 1
+        if length < 1:
+            raise ValueError("MineNetSecondOrder needs more frames than its "
+                             "convs' kernels take")
+        _mlp(self, in_dim * length, dense_hidden_units, 1)
+
+    def forward(self, x):
+        x = x.transpose(1, 2)
+        for i in range(self.n_conv):
+            x = torch.relu(getattr(self, f"conv_{i}")(x))
+        return _run_mlp(self, x.transpose(1, 2).reshape(x.shape[0], -1))
+
+
+class MineNetLinear(nn.Module):
+    """Linear-stack critic on (b, 1, d), its middle axis squeezed and
+    restored (`layers.py:631-646`); etts draws its kernels and biases
+    normal with std ``init_std``."""
+    init_std = 0.05
+
+    def __init__(self, in_dim: int, dense_hidden_units: Sequence[int]):
+        super().__init__()
+        _mlp(self, in_dim, dense_hidden_units, 1)
+
+    def forward(self, x):
+        return _run_mlp(self, x[:, 0])[:, None]
+
+
+class MineNetLinearQ(nn.Module):
+    """Linear stack + quadratic term x^T W x + x b (`layers.py:649-669`),
+    every parameter normal with std ``init_std``."""
+    init_std = 0.05
+
+    def __init__(self, in_dim: int, dense_hidden_units: Sequence[int]):
+        super().__init__()
+        self.q_w = nn.Parameter(torch.zeros(in_dim, in_dim))
+        self.q_b = nn.Parameter(torch.zeros(in_dim, 1))
+        _mlp(self, in_dim, dense_hidden_units, 1)
+
+    def forward(self, x):
+        x = x[:, 0]
+        q_term = (x * (x @ self.q_w)).sum(1, keepdim=True)
+        return (_run_mlp(self, x) + x @ self.q_b + q_term)[:, None]
+
+
+class CLUBNet(nn.Module):
+    """MLP -> Dense(out_dim), tanh'd for the log-variance head
+    (`layers.py:672-684`)."""
+
+    def __init__(self, in_dim: int, dense_hidden_units: Sequence[int],
+                 log_var: bool, out_dim: int = 256):
+        super().__init__()
+        self.log_var = log_var
+        _mlp(self, in_dim, dense_hidden_units, out_dim)
+
+    def forward(self, x):
+        x = _run_mlp(self, x)
+        return torch.tanh(x) if self.log_var else x

@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["positional_encoding", "encoder_padding_mask", "mel_padding_mask"]
+__all__ = ["positional_encoding", "encoder_padding_mask", "mel_padding_mask",
+           "look_ahead_mask"]
 
 
 def positional_encoding(max_position: int, model_dim: int) -> np.ndarray:
@@ -28,3 +29,8 @@ def encoder_padding_mask(token_ids: torch.Tensor) -> torch.Tensor:
 def mel_padding_mask(mel: torch.Tensor) -> torch.Tensor:
     """(b, t, c) -> (b, 1, 1, t); a frame is padding iff all channels are 0."""
     return (mel.abs().sum(-1) == 0).float()[:, None, None, :]
+
+
+def look_ahead_mask(size: int, device=None) -> torch.Tensor:
+    """(size, size); 1 above the diagonal (the future)."""
+    return torch.ones(size, size, device=device).triu(1)

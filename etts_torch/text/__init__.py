@@ -8,7 +8,16 @@ from .symbols import _phonemes, _punctuations
 from .cleaners import English, German
 from .tokenizer import Tokenizer, Phonemizer
 
-__all__ = ["Pipeline", "English", "German", "Tokenizer", "Phonemizer"]
+__all__ = ["Pipeline", "English", "German", "Tokenizer", "Phonemizer",
+           "default_tokenizer"]
+
+
+def default_tokenizer(add_start_end: bool) -> Tokenizer:
+    """The models' tokenizer: the phoneme and punctuation alphabet, with the
+    start and end tokens for the autoregressive model. It needs no
+    phonemizer, so a dataset of phonemes tokenizes without one."""
+    return Tokenizer(sorted(list(_phonemes) + list(_punctuations)),
+                     add_start_end=add_start_end)
 
 
 class Pipeline:
@@ -33,6 +42,5 @@ class Pipeline:
             raise ValueError(f'language must be "en" or "de", not {language!r}')
         phonemizer = Phonemizer(language=language, strip=strip,
                                 with_stress=with_stress, backend=backend)
-        tokenizer = Tokenizer(sorted(list(_phonemes) + list(_punctuations)),
-                              add_start_end=add_start_end)
-        return cls(cleaner=cleaner, phonemizer=phonemizer, tokenizer=tokenizer)
+        return cls(cleaner=cleaner, phonemizer=phonemizer,
+                   tokenizer=default_tokenizer(add_start_end))

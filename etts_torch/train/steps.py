@@ -1,0 +1,250 @@
+"""Train and validation steps of the autoregressive model and the MINE
+zoo's updates (port of ``etts/train/steps.py:111-382``).
+
+The joint TTS + MINE step, as the reference's `traning_steps.py`:
+  - TTS loss = MAE(final) + stop cross-entropy (class 2 scaled by
+    ``stop_scaling``) + MAE(mel_linear), weights 1, 1, 1;
+  - an optional style-consistency loss: the predicted mel re-encoded
+    through the style encoder, l2 against the first pass;
+  - total = tts + weight * max(0, mi), where mi is the previous step's MI
+    estimate, a constant under the tape; or, with ``adversarial_mine``, the
+    zoo's estimate on this pass's embeddings, the critics held constant;
+  - each MINE net climbs its own MI estimate (CLUB its log-likelihood).
+
+Steps update their state in place and return metrics as tensors on the
+device (no host sync). Per-step randomness comes from generators seeded by
+``fold_in(rng, stream)``, and the driver passes ``rng = fold_in(seed,
+step)``, as etts folds its keys, so a resumed run draws what an
+uninterrupted one draws.
+"""
+from __future__ import annotations
+
+import contextlib
+import hashlib
+
+import torch
+
+from ..models.mine import MIState, pair_draws
+from ..utils.losses import (l2_loss, masked_mean_absolute_error,
+                            new_scaled_crossentropy, weighted_sum_losses)
+
+__all__ = ["fold_in", "generator", "frozen_batch_stats",
+           "make_autoregressive_train_step", "make_autoregressive_val_step",
+           "make_mine_update", "make_mine_zoo_update"]
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A 63-bit seed derived from ``seed`` and ``data``."""
+    h = hashlib.blake2b(f"{seed}:{data}".encode(), digest_size=8).digest()
+    return int.from_bytes(h, "little") >> 1
+
+
+def generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device).manual_seed(seed)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: torch.nn.Module):
+    """Run a pass whose BatchNorm running statistics are thrown away, as
+    etts drops the ``batch_stats`` of its extra passes."""
+    saved = [(b, b.clone()) for n, b in module.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)
+
+
+def _grads(loss, params):
+    """d loss / d params; zeros for a parameter the loss does not reach
+    (as JAX gives)."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
+def _tts_losses(out, tar_real, tar_stop, mel_len, loss_fns):
+    return weighted_sum_losses(
+        (tar_real, tar_stop, tar_real),
+        (out["final_output"][:, :mel_len], out["stop_prob"][:, :mel_len],
+         out["mel_linear"][:, :mel_len]), loss_fns, (1.0, 1.0, 1.0))
+
+
+def _loss_fns(stop_scaling: float):
+    return (masked_mean_absolute_error,
+            new_scaled_crossentropy(index=2, scaling=stop_scaling),
+            masked_mean_absolute_error)
+
+
+def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
+                                   use_style_loss: bool = False,
+                                   mi_weight_factor: float = 0.1,
+                                   train_text_encoder: bool = True,
+                                   train_style_encoder: bool = True,
+                                   train_decoder: bool = True,
+                                   adversarial_mine=None,
+                                   scheduled_sampling: bool = False,
+                                   gta_inputs: bool = False):
+    """``step(state, batch, mi_loss, rng, *, r, prenet_dropout=0.5,
+    drop_n_heads=0, ss_rate=0.0) -> (metrics, aux)``, one Adam update of
+    ``state`` (a ``TrainState`` of ``model``).
+
+    ``batch``: (mel, phonemes, stop, spk[, gta_mel]) tensors on the model's
+    device. ``mi_loss``: the previous step's MI estimate, or, with
+    ``adversarial_mine`` (the driver's zoo of ``(kind, net)``), the
+    ``MIState``. ``scheduled_sampling``: a first pass with the train flags
+    off and no gradient predicts the frames; each r-strided decoder input is
+    replaced by its prediction with probability ``ss_rate`` (the style
+    encoder keeps the clean mel); ss_rate 0 is the plain step bit for bit.
+    ``gta_inputs``: the decoder reads the batch's fifth tensor, a frozen
+    checkpoint's teacher-forced mel (its GO frame exact), the targets and
+    the style reference stay ground truth. Metrics: {"loss", "tts_loss",
+    "style_loss", "mi_live", "losses": {"output", "stop_prob",
+    "mel_linear"}}; aux: text_enc_output, gst_output (detached),
+    decoder_attention, reduced_target, final_output."""
+    loss_fns = _loss_fns(stop_scaling)
+
+    def step(state, batch, mi_loss, rng: int, *, r: int,
+             prenet_dropout: float = 0.5, drop_n_heads: int = 0,
+             ss_rate: float = 0.0):
+        mel, phonemes, stop, spk = batch[:4]
+        dev = mel.device
+        spk_in = spk[:, None] if model.has_speaker else None
+        tar_real, tar_mel, tar_stop, mel_len = model.input_reshape(mel, stop,
+                                                                   r)
+        dec_inp, style_tar = tar_mel, None
+        if gta_inputs:
+            _, gta_tar, _, _ = model.input_reshape(batch[4], stop, r)
+            dec_inp = torch.cat([tar_mel[:, :1], gta_tar[:, 1:]], 1)
+            style_tar = tar_mel
+        if scheduled_sampling:
+            ss_rng = fold_in(rng, 13)
+            with torch.no_grad():
+                out1 = model(phonemes, tar_mel, spk_in, False, False, False,
+                             r=r, prenet_dropout=prenet_dropout,
+                             generator=generator(ss_rng, dev))
+            # final_output[:, t] predicts mel[:, t + 1]: prepend the GO
+            # frame and shift + r-stride as the targets are
+            pred = torch.cat([mel[:, :1], out1["final_output"][:, :mel_len]],
+                             1)[:, :-1][:, 0::r]
+            mix = torch.rand(tar_mel.shape[0], tar_mel.shape[1], 1,
+                             generator=generator(fold_in(ss_rng, 1), dev),
+                             device=dev) < ss_rate
+            dec_inp = torch.where(mix, pred, tar_mel)
+            style_tar = tar_mel
+        out = model(phonemes, dec_inp, spk_in, train_text_encoder,
+                    train_style_encoder, train_decoder, r=r,
+                    prenet_dropout=prenet_dropout, drop_n_heads=drop_n_heads,
+                    style_targets=style_tar, generator=generator(rng, dev))
+        tts_loss, vals = _tts_losses(out, tar_real, tar_stop, mel_len,
+                                     loss_fns)
+        style_loss = tts_loss.new_zeros(())
+        if use_style_loss and model.has_style:
+            with frozen_batch_stats(model):
+                gst2 = model.encode_style(
+                    out["final_output"], train_style_encoder, drop_n_heads,
+                    generator(fold_in(rng, 7), dev))[0]
+            style_loss = l2_loss(gst2, out["gst_output"])
+        tts_total = tts_loss + style_loss
+        if adversarial_mine is not None:
+            spk_m = (spk_in if model.has_speaker
+                     else mel.new_zeros(mel.shape[0], 1, 1))
+            text = out["text_enc_output"]
+            mi_live = tts_loss.new_zeros(())
+            for i, (kind, net) in enumerate(adversarial_mine):
+                draws = pair_draws(text.shape[0], text.shape[1], generator(
+                    fold_in(rng, 101 + i), dev))
+                res = net(text, out["gst_output"], spk_m, mi_loss, draws)
+                # MINE -> (mi, terms); CLUB -> (lld, bound): the bound
+                mi_live = mi_live + (res[1] if kind == "CLUB" else res[0])
+        else:
+            mi_live = torch.as_tensor(mi_loss, dtype=torch.float32,
+                                      device=dev).detach()
+        total = tts_total + mi_weight_factor * mi_live.clamp(min=0.0)
+        state.apply_gradients(_grads(total, state.params))
+        metrics = {"loss": total.detach(), "tts_loss": tts_total.detach(),
+                   "style_loss": style_loss.detach(),
+                   "mi_live": mi_live.detach(),
+                   "losses": {k: v.detach() for k, v in zip(
+                       ("output", "stop_prob", "mel_linear"), vals)}}
+        detach = lambda x: None if x is None else x.detach()
+        aux = {"text_enc_output": detach(out["text_enc_output"]),
+               "gst_output": detach(out["gst_output"]),
+               "decoder_attention": {k: v.detach() for k, v in
+                                     out["decoder_attention"].items()},
+               "reduced_target": tar_mel,
+               "final_output": out["final_output"].detach()}
+        return metrics, aux
+
+    return step
+
+
+def make_autoregressive_val_step(model, *, stop_scaling: float = 8.0):
+    """``step(batch, rng, *, r=1) -> out``: the teacher-forced forward with
+    the train flags off and prenet dropout 0.5, as etts fixes it
+    (`etts/train/steps.py:281-309`); ``out`` is the model's dict plus
+    "tts_loss", "losses" and "reduced_target"."""
+    loss_fns = _loss_fns(stop_scaling)
+
+    @torch.no_grad()
+    def step(batch, rng: int, *, r: int = 1):
+        mel, phonemes, stop, spk = batch[:4]
+        spk_in = spk[:, None] if model.has_speaker else None
+        tar_real, tar_mel, tar_stop, mel_len = model.input_reshape(mel, stop,
+                                                                   r)
+        out = model(phonemes, tar_mel, spk_in, False, False, False, r=r,
+                    prenet_dropout=0.5, generator=generator(rng, mel.device))
+        tts_loss, vals = _tts_losses(out, tar_real, tar_stop, mel_len,
+                                     loss_fns)
+        out.update({"tts_loss": tts_loss,
+                    "losses": dict(zip(("output", "stop_prob", "mel_linear"),
+                                       vals)),
+                    "reduced_target": tar_mel})
+        return out
+
+    return step
+
+
+def make_mine_update(net, kind: str = "MINE"):
+    """One MI net's update by gradient ascent (`traning_steps.py:77-82`):
+    ``step(state, text_enc_out, gst_out, spk, mi_state, rng) -> (mi,
+    exp_terms)``, ``state`` a ``TrainState`` of ``net``. MINE climbs its
+    estimate; CLUB climbs its log-likelihood, reports its bound as the MI
+    and leaves the exp_terms as they were."""
+    def step(state, text_enc_out, gst_out, spk, mi_state: MIState, rng: int):
+        draws = pair_draws(text_enc_out.shape[0], text_enc_out.shape[1],
+                           generator(rng, text_enc_out.device))
+        if kind == "CLUB":
+            lld, mi = net(text_enc_out, gst_out, spk, mi_state, draws)
+            loss, terms = -lld, mi_state.exp_terms
+        else:
+            mi, terms = net(text_enc_out, gst_out, spk, mi_state, draws)
+            loss = -mi
+        state.apply_gradients(_grads(loss, state.params))
+        return mi.detach(), terms.detach()
+
+    return step
+
+
+def make_mine_zoo_update(nets):
+    """The whole zoo's updates: ``step(states, text_enc_out, gst_out, spk,
+    mi_state, rngs) -> (mis (n,), exp_terms)``, one state and one rng per
+    net. Kept from the reference (`etts/train/steps.py:356-358`): the
+    driver sums the MIs, and the LAST net's exp_terms are carried."""
+    if not nets:
+        raise ValueError(
+            "make_mine_zoo_update needs a non-empty zoo: check mine_type "
+            "(MINE|CLUB|MINE_CLUB) and that system_type derives pair types")
+    updates = [make_mine_update(net, kind) for kind, net in nets]
+
+    def step(states, text_enc_out, gst_out, spk, mi_state: MIState, rngs):
+        mis, terms = [], mi_state.exp_terms
+        for update, state, rng in zip(updates, states, rngs, strict=True):
+            mi, terms = update(state, text_enc_out, gst_out, spk, mi_state,
+                               rng)
+            mis.append(mi)
+        return torch.stack(mis), terms
+
+    return step

@@ -1,10 +1,14 @@
 """Read a config dir (``data_config.yaml`` + ``{kind}_config.yaml``) and build
 the port's models: the counterpart of ``ConfigManager.get_model``
 (``etts/utils/config.py:145-305``) for the AR TTS, forward TTS and WaveRNN
-families."""
+families; and ``ConfigManager``'s session directories, which a training
+driver uses."""
 from __future__ import annotations
 
+import shutil
+import subprocess
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import yaml
@@ -12,17 +16,108 @@ import yaml
 from ..text import Pipeline
 
 __all__ = ["load_config", "text_pipeline", "build_tts", "build_forward",
-           "build_vocoder", "schedule_values"]
+           "build_vocoder", "schedule_values", "step_schedule",
+           "piecewise_linear_schedule", "ConfigManager"]
+
+
+def _read_yaml(path) -> dict:
+    with open(path) as f:
+        return dict(yaml.safe_load(f))
 
 
 def load_config(config_dir, model_kind: str) -> dict:
     """Merged dict: the model config, overridden by the data config."""
     config_dir = Path(config_dir)
-    with open(config_dir / f"{model_kind}_config.yaml") as f:
-        config = dict(yaml.safe_load(f))
-    with open(config_dir / "data_config.yaml") as f:
-        config.update(yaml.safe_load(f))
-    return config
+    return {**_read_yaml(config_dir / f"{model_kind}_config.yaml"),
+            **_read_yaml(config_dir / "data_config.yaml")}
+
+
+def _mine_pair_types(config: dict) -> list:
+    """The embedding pairs MINE reads for the config's system type
+    (`etts/utils/config.py:37-56`; "speaker_text" is etts' name, which its
+    pair builder refuses, kept as etts has it)."""
+    st = config.get("system_type")
+    pairs = {"speaker_style_text": ["style_text", "style_speaker",
+                                    "text_speaker"],
+             "style_text": ["style_text"],
+             "speaker_text": ["speaker_text"]}.get(st)
+    if pairs is None:
+        print(f"use_mine with system_type={st!r}: no embedding pairs to "
+              "disentangle, MINE disabled")
+        return []
+    if config.get("use_pretrained") and st == "speaker_style_text":
+        return ["style_text", "style_speaker"]
+    return pairs
+
+
+class ConfigManager:
+    """A training session's config and directories (the part of
+    ``etts/utils/config.py:60-116, :261-281`` a driver uses): the merged
+    ``config`` (MINE's pair types derived from ``system_type``), the
+    session name (``session_name``, else the config's, else the git
+    hash), ``base_dir``, ``log_dir``, ``weights_dir``, one
+    ``mine_weights_dir`` a MINE net, ``train_datadir``; ``dump_config``
+    and ``create_remove_dirs``."""
+
+    def __init__(self, config_path, model_kind: str,
+                 session_name: Optional[str] = None):
+        self.config_path = Path(config_path)
+        self.model_kind = model_kind
+        self.model_config = _read_yaml(
+            self.config_path / f"{model_kind}_config.yaml")
+        self.data_config = _read_yaml(self.config_path / "data_config.yaml")
+        self.config = {**self.model_config, **self.data_config}
+        self.git_hash = _git_hash()
+        c = self.config
+        if c.get("use_mine"):
+            c["mine_pair_types"] = _mine_pair_types(c)
+        session_name = session_name or c.get("session_name") or self.git_hash
+        self.session_name = "_".join(
+            filter(None, [self.config_path.name, session_name]))
+        self.base_dir = Path(c["log_directory"]) / self.session_name
+        self.log_dir = self.base_dir / f"{model_kind}_logs"
+        self.weights_dir = self.base_dir / f"{model_kind}_weights"
+        self.train_datadir = Path(c.get("train_data_directory")
+                                  or c["data_directory"])
+        n_mine = 0
+        if c.get("use_mine"):
+            n_mine = len(c["mine_pair_types"]) * (
+                2 if c.get("mine_type") == "MINE_CLUB" else 1)
+        self.mine_weights_dir = [self.base_dir / f"mine_weights_{i}"
+                                 for i in range(n_mine)]
+
+    def dump_config(self):
+        """Write the model and data configs, with the git hash and session
+        name, into ``base_dir``."""
+        for cfg in (self.config, self.model_config, self.data_config):
+            cfg["git_hash"] = self.git_hash
+            cfg["session_name"] = self.session_name
+        with open(self.base_dir / f"{self.model_kind}_config.yaml", "w") as f:
+            yaml.safe_dump(self.model_config, f)
+        with open(self.base_dir / "data_config.yaml", "w") as f:
+            yaml.safe_dump(self.data_config, f)
+
+    def create_remove_dirs(self, clear_dir=False, force=False):
+        """Make the session's directories; with ``clear_dir`` delete its
+        logs and weights first, asking unless ``force``."""
+        self.base_dir.mkdir(parents=True, exist_ok=True)
+        if clear_dir and (force or input(
+                f"Delete {self.log_dir} AND {self.weights_dir}? (y/[n])")
+                == "y"):
+            shutil.rmtree(self.log_dir, ignore_errors=True)
+            shutil.rmtree(self.weights_dir, ignore_errors=True)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.weights_dir.mkdir(parents=True, exist_ok=True)
+
+
+def _git_hash():
+    try:
+        return subprocess.check_output(
+            ["git", "describe", "--always"],
+            stderr=subprocess.DEVNULL).strip().decode()
+    except (OSError, subprocess.CalledProcessError):
+        print("WARNING: could not retrieve the git hash")
+        return None
 
 
 def text_pipeline(config: dict, backend: str | None = None,
@@ -42,7 +137,9 @@ def text_pipeline(config: dict, backend: str | None = None,
         with_stress=config.get("with_stress", False), backend=backend)
 
 
-def _piecewise_linear(step: int, schedule) -> float:
+def piecewise_linear_schedule(step: int, schedule) -> float:
+    """Linear between the [[step, value], ...] breakpoints, clamped at both
+    ends (`etts/utils/scheduling.py:10-21`)."""
     s = np.asarray(schedule, dtype=np.float64)
     if step < s[0, 0]:
         return float(s[0, 1])
@@ -53,7 +150,9 @@ def _piecewise_linear(step: int, schedule) -> float:
     return float(y0 + (y1 - y0) * (step - x0) / (x1 - x0))
 
 
-def _step_function(step: int, schedule) -> int:
+def step_schedule(step: int, schedule) -> int:
+    """The value of the last breakpoint at or before ``step`` (r, head
+    drop, MINE batch size); the first value before the first breakpoint."""
     value = schedule[0][1]
     for bp, v in schedule:
         if bp <= step:
@@ -67,10 +166,10 @@ def schedule_values(config: dict, step: int) -> dict:
     """The TTS model's inference constants at a training step: reduction
     factor r (1 without a schedule, as for the forward model) and decoder
     prenet dropout (``ConfigManager.schedule_values``)."""
-    return {"reduction_factor": _step_function(
+    return {"reduction_factor": step_schedule(
                 step, config["reduction_factor_schedule"])
             if "reduction_factor_schedule" in config else 1,
-            "decoder_prenet_dropout": _piecewise_linear(
+            "decoder_prenet_dropout": piecewise_linear_schedule(
                 step, config["decoder_prenet_dropout_schedule"])
             if "decoder_prenet_dropout_schedule" in config else 0.0}
 
@@ -109,6 +208,7 @@ def build_tts(config: dict, vocab_size: int):
         prosody_embed_dim=c.get("prosody_embed_dim", 32),
         max_r=int(np.asarray(c["reduction_factor_schedule"])[0, 1]),
         mel_start_value=c["mel_start_value"],
+        dropout_rate=c.get("dropout_rate", 0.1),
         vocab_size=vocab_size)
 
 

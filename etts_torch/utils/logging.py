@@ -1,0 +1,69 @@
+"""Training observability: ``ValueWindow`` (`etts/utils/display.py`) and
+``ScalarLog``, the scalar part of etts' ``SummaryManager``
+(`etts/utils/logging.py:75-90`). The scalars go under etts' tags
+(``train/loss``, ``meta/reduction_factor``, ``mi/MINE_0`` ...) as JSON
+lines, ``{"tag", "value", "step"}``, in ``log_dir/scalars.jsonl``; a
+predicted mel goes to ``log_dir`` as ``.npy``. No TensorBoard writer: the
+card's machine has none."""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+
+__all__ = ["ValueWindow", "ScalarLog", "read_scalars"]
+
+
+class ValueWindow:
+    """Rolling average over the last ``window_size`` values."""
+
+    def __init__(self, window_size=100):
+        self._window_size = window_size
+        self._values = []
+
+    def append(self, x):
+        self._values = self._values[-(self._window_size - 1):] + [x]
+
+    @property
+    def sum(self):
+        return sum(self._values)
+
+    @property
+    def count(self):
+        return len(self._values)
+
+    @property
+    def average(self):
+        return self.sum / max(1, self.count)
+
+    def reset(self):
+        self._values = []
+
+
+class ScalarLog:
+    def __init__(self, log_dir):
+        self.log_dir = Path(log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.path = self.log_dir / "scalars.jsonl"
+
+    def add_scalar(self, tag: str, value, step: int):
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"tag": tag, "value": float(value),
+                                "step": int(step)}) + "\n")
+
+    def save_mel(self, mel, tag: str, step: int) -> Path:
+        """The mel (t, n_mels) as ``{tag with / as _}_{step}.npy``."""
+        path = self.log_dir / f"{tag.replace('/', '_')}_{step}.npy"
+        np.save(path, np.asarray(mel, np.float32))
+        return path
+
+
+def read_scalars(log_dir) -> dict:
+    """{tag: {step: value}} of ``log_dir``'s scalars, later lines winning."""
+    out = {}
+    with open(Path(log_dir) / "scalars.jsonl") as f:
+        for line in f:
+            rec = json.loads(line)
+            out.setdefault(rec["tag"], {})[rec["step"]] = rec["value"]
+    return out

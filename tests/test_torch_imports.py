@@ -31,5 +31,9 @@ def test_port_imports_no_jax_flax_or_etts():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert "etts_torch.api" in modules and len(modules) >= 20
     assert {"etts_torch.streaming", "etts_torch.ops.griffin_lim",
-            "etts_torch.models.forward", "etts_torch.ops.expand"} <= set(
-        modules)
+            "etts_torch.models.forward", "etts_torch.ops.expand",
+            "etts_torch.train.state", "etts_torch.train.steps",
+            "etts_torch.data.dataset", "etts_torch.models.mine",
+            "etts_torch.models.init", "etts_torch.utils.losses",
+            "etts_torch.utils.checkpoints", "etts_torch.utils.logging",
+            "etts_torch.train_autoregressive"} <= set(modules)

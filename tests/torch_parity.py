@@ -260,3 +260,210 @@ def small_workspace(d: Path, kinds=("autoregressive", "wavernn")) -> dict:
     out["spk"] = np.random.default_rng(1).standard_normal(256).astype(
         np.float32)
     return out
+
+
+# ---------------------------------------------------------------------------
+# training parity (test_torch_train_*.py)
+# ---------------------------------------------------------------------------
+
+def train_pair(system_type="speaker_style_text", seed=0, **over):
+    """(flax model, variables, torch model) of AR_TINY and ``over``: the
+    port model initialised by ``init_flax`` (seeded, no flax init to
+    compile), its BatchNorm statistics seeded (means normal 0.1, variances
+    in [0.5, 1.5]), handed to flax through the flat layout."""
+    from etts.models.autoregressive import AutoregressiveTransformer as JM
+    from etts_torch.convert import export_flat
+    from etts_torch.models.autoregressive import (
+        AutoregressiveTransformer as TM)
+    from etts_torch.models.init import init_flax
+    cfg = dict(AR_TINY, **over)
+    tm = TM(system_type=system_type, speaker_embed_dim=SPK_DIM, **cfg)
+    g = torch.Generator().manual_seed(seed)
+    init_flax(tm, g)
+    with torch.no_grad():
+        for name, b in tm.named_buffers():
+            if name.endswith("running_mean"):
+                b.normal_(0.0, 0.1, generator=g)
+            elif name.endswith("running_var"):
+                b.uniform_(0.5, 1.5, generator=g)
+    return (JM(system_type=system_type, **cfg), unflatten(export_flat(tm)),
+            tm.eval())
+
+
+def capture_tx():
+    """An optax transformation that applies no update and keeps the
+    gradients it is given as its state: etts' gradients, exactly, as
+    ``new_state.opt_state``."""
+    import optax
+    zeros = lambda tree: jax.tree.map(jnp.zeros_like, tree)
+    return optax.GradientTransformation(
+        zeros, lambda g, state, params=None: (zeros(g), g))
+
+
+def capture_state(module, frozen=()):
+    """A port ``TrainState`` of ``module`` whose ``apply_gradients`` keeps
+    the gradients ({parameter name: grad}) as ``.grads`` and updates
+    nothing."""
+    from etts_torch.train.state import TrainState
+
+    class Capture(TrainState):
+        def apply_gradients(self, grads):
+            self.grads = dict(zip(self.names, grads))
+            self.step += 1
+    return Capture(module, [[0, 1e-3]], frozen=frozen)
+
+
+def torch_grads(flax_grads) -> dict:
+    """etts' gradient tree -> {port parameter name: numpy grad}, in the
+    port's layout."""
+    from etts_torch.convert import _to_torch_layout, _torch_name
+    return {_torch_name(k): _to_torch_layout(k, g)
+            for k, g in flatten({"params": flax_grads}).items()}
+
+
+def assert_grads_close(want: dict, got: dict, rtol: float, atol: float):
+    """Per tensor: ||got - want|| <= rtol * ||want|| + atol. ``atol`` is
+    for the gradients that are zero in exact arithmetic (a key bias under
+    the softmax, a conv bias before a BatchNorm on batch statistics), which
+    float32 leaves at rounding noise."""
+    assert set(want) == set(got), set(want) ^ set(got)
+    for name, w in want.items():
+        g = np.asarray(got[name])
+        err = np.linalg.norm(g - w)
+        assert err <= rtol * np.linalg.norm(w) + atol, (
+            name, err, np.linalg.norm(w))
+
+
+def ar_train_batch(seed=0, b=4, t_mel=22, n=9, mel_c=12, spk_d=SPK_DIM):
+    """A batch as etts' DataPrepper and Dataset make it: rows of other
+    lengths, each mel between the start (0.5) and end (-0.5) vectors,
+    stop class 1 and 2 at the last frame, zero padding (stop 0) after;
+    ids zero-padded. Returns numpy (mel, phonemes, stop, spk)."""
+    rng = np.random.default_rng(seed)
+    mel = np.zeros((b, t_mel, mel_c), np.float32)
+    stop = np.zeros((b, t_mel), np.int32)
+    phon = np.zeros((b, n), np.int32)
+    for i in range(b):
+        length = t_mel - 2 if i == 0 else int(rng.integers(t_mel // 2,
+                                                           t_mel - 2))
+        mel[i, 0], mel[i, length + 1] = 0.5, -0.5
+        mel[i, 1:length + 1] = rng.normal(0, 0.5, (length, mel_c))
+        stop[i, :length + 2] = 1
+        stop[i, length + 1] = 2
+        k = n if i == 0 else int(rng.integers(n // 2, n))
+        phon[i, :k] = rng.integers(1, AR_TINY["vocab_size"], k)
+    spk = rng.normal(size=(b, spk_d)).astype(np.float32)
+    return mel, phon, stop, spk
+
+
+def to_jax(batch):
+    return tuple(jnp.asarray(x) for x in batch)
+
+
+def to_torch(batch):
+    """numpy batch -> torch, ids and stop classes as int64."""
+    return tuple(torch.from_numpy(x).long() if x.dtype == np.int32
+                 else torch.from_numpy(x) for x in batch)
+
+
+TRAIN_TINY = dict(TTS_SMALL, reduction_factor_schedule=[[0, 3]],
+                  tts_batch_size=4, use_mine=True,
+                  mine_batch_size_schedule=[[0, 4]],
+                  mine_dense_hidden_units=[16, 8], weights_save_frequency=2,
+                  prediction_frequency=2, prediction_start_step=0,
+                  metrics_sync_frequency=1, keep_n_weights=2)
+
+
+def tiny_corpus(d: Path, n=12, mel_c=12, spk_d=SPK_DIM, seed=0, **over):
+    """A corpus in create_dataset.py's layout under ``d/corpus``
+    (train_metafile.txt ``id|text|phonemes``, mels/*.npy (t, mel_c),
+    spk_embeds/*.npy), 10-40 frames and 5-13 phonemes an utterance, and a
+    config dir ``d`` of configs/default shrunk by TRAIN_TINY and ``over``
+    (mel_c channels, logs under ``d/logs``). Returns the sample ids."""
+    from etts_torch.text.symbols import _phonemes
+    rng = np.random.default_rng(seed)
+    corpus = d / "corpus"
+    (corpus / "mels").mkdir(parents=True, exist_ok=True)
+    (corpus / "spk_embeds").mkdir(exist_ok=True)
+    alpha = sorted(_phonemes)
+    lines = []
+    for i in range(n):
+        np.save(corpus / "mels" / f"u{i}.npy", rng.uniform(
+            -4, 4, (int(rng.integers(10, 40)), mel_c)).astype(np.float32))
+        np.save(corpus / "spk_embeds" / f"u{i}.npy",
+                rng.normal(size=spk_d).astype(np.float32))
+        phon = "".join(rng.choice(alpha, int(rng.integers(5, 14))))
+        lines.append(f"u{i}|Text number {i}.|{phon}\n")
+    (corpus / "train_metafile.txt").write_text("".join(lines))
+    for kind, cfg_over in (("autoregressive", dict(TRAIN_TINY, **over)),
+                           ("data", dict(
+                               mel_channels=mel_c, phonemizer_backend=None,
+                               train_data_directory=str(corpus),
+                               log_directory=str(d / "logs")))):
+        cfg = yaml.safe_load(open(ROOT / "configs/default" /
+                                  f"{kind}_config.yaml"))
+        cfg.update(cfg_over)
+        yaml.safe_dump(cfg, open(d / f"{kind}_config.yaml", "w"))
+    return [f"u{i}" for i in range(n)]
+
+
+_ETTS_STEPS = {}
+
+
+def etts_step(jm, tx=None, **opts):
+    """etts' make_autoregressive_train_step(jm, tx, stop_scaling=8, **opts),
+    kept per process and options so that its jit compiles once (tx None:
+    ``capture_tx``)."""
+    from etts.train import make_autoregressive_train_step
+    key = (id(jm), id(tx), tuple(sorted(
+        (k, id(v) if isinstance(v, list) else v) for k, v in opts.items())))
+    if key not in _ETTS_STEPS:
+        _ETTS_STEPS[key] = (jm, make_autoregressive_train_step(
+            jm, tx or capture_tx(), stop_scaling=8.0, **opts))
+    return _ETTS_STEPS[key][1]
+
+
+def step_pair(pair, batch, *, r, mi=0.0, ss_rate=0.0, jax_mi=None,
+              key=0, **opts):
+    """One train step of etts (gradients kept by ``capture_tx``) and of the
+    port (``capture_state``) from the same weights, dropout 0, prenet
+    dropout 0, no head drop. Returns ((etts state, metrics), (port state,
+    metrics, the port model's weights after the step (``export_flat``)));
+    the port model is reloaded from the weights first."""
+    from etts.train import TrainState as JState
+    from etts_torch.train.steps import make_autoregressive_train_step
+    jm, v, tm = pair
+    step = etts_step(jm, **{k: v_ for k, v_ in opts.items()
+                            if k != "adversarial_mine"},
+                     **({"adversarial_mine": opts["adversarial_mine"][0]}
+                        if "adversarial_mine" in opts else {}))
+    jst, jmet, _ = step(JState.create(v, capture_tx()), to_jax(batch),
+                        jnp.asarray(mi) if jax_mi is None else jax_mi,
+                        jax.random.PRNGKey(key), r=r, prenet_dropout=0.0,
+                        ss_rate=ss_rate)
+    load_into(tm, flatten(v))
+    topts = dict(opts)
+    if "adversarial_mine" in topts:
+        topts["adversarial_mine"] = topts["adversarial_mine"][1]
+    cs = capture_state(tm)
+    tmet, _ = make_autoregressive_train_step(tm, stop_scaling=8.0, **topts)(
+        cs, to_torch(batch), mi, key, r=r, prenet_dropout=0.0,
+        ss_rate=ss_rate)
+    from etts_torch.convert import export_flat
+    return (jst, jmet), (cs, tmet, export_flat(tm))
+
+
+def assert_step_close(j, p, rtol=1e-4, atol=1e-7, metric_atol=1e-7):
+    """The port's step against etts': every gradient (``assert_grads_close``
+    at ``rtol`` / ``atol``), the BatchNorm statistics after it within 1e-6,
+    and every metric within 1e-5 relative (``metric_atol`` absolute)."""
+    (jst, jmet), (cs, tmet, got) = j, p
+    assert_grads_close(torch_grads(jst.opt_state), cs.grads, rtol, atol)
+    want = flatten({"params": jst.params, "batch_stats": jst.batch_stats})
+    for k in (k for k in want if k.startswith("batch_stats")):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-6, err_msg=k)
+    flat = lambda m: {**{k: m[k] for k in ("loss", "tts_loss", "style_loss",
+                                           "mi_live")}, **m["losses"]}
+    for k, w in flat(jmet).items():
+        np.testing.assert_allclose(float(flat(tmet)[k]), float(w),
+                                   rtol=1e-5, atol=metric_atol, err_msg=k)
