@@ -87,7 +87,20 @@ Phases (any failure exits non-zero and prints no result line):
      resumed to 30; its step and zoo times, target frames a second and
      peak memory; the trained BatchNorm statistics moved; the step-30
      weights exported and served through TTSSynthesizer: one fused decode
-     launch, its mel within DECODE_TOL of the plain decode.
+     launch, its mel within DECODE_TOL of the plain decode;
+  10. GST-Tacotron (tacotron_phase): TacotronSynthesizer at configs/default's
+     full width on seeded weights, text + the reference wav's mel -> wav
+     through all 1000 decode steps, 60 Griffin-Lim iterations and
+     de-emphasis, launches read around it (none of the port's kernels);
+     held against the same code on the CPU (TACO_* bars): the reference
+     mel, the encoder output, every decode step teacher-fed from the CPU
+     run, the head, the wav after 2 Griffin-Lim iterations and
+     de-emphasis, de-emphasis alone, a stop inside the run, the random
+     style without a reference; the free-running decode's first step past
+     the bar printed; times and the real-time factor.
+
+The port computes in float32 without TF32 (``utils/precision.py``), as
+every entry point sets it.
 
 Each entry of the kernels line counts the launches of the run it
 describes (the main path's, or the serving run's in its mode), and lists
@@ -184,6 +197,20 @@ TRAIN_GRAD_ATOL = 1e-6
 TRAIN_STEPS = (20, 30)
 TRAIN_CORPUS = 64
 TRAIN_MAX_LENGTH = 200
+# phase 10: GST-Tacotron (configs/default, seeded weights) on the card
+# against the same port code on the CPU, float32 on both (TF32 off), max
+# |d| on values of unit scale: the reference mel and the encoder output;
+# every decode step teacher-fed from the CPU run's carry and input (the
+# frames, the alignment and the carry it leaves); the free-running frames
+# (printed: the first step past the bar); the post CBHG + linear head on
+# the same mel; the wav after 2 Griffin-Lim iterations and de-emphasis on
+# the same spectrogram, and de-emphasis alone on the same wav, as shares of
+# the wav's peak; the stop check's decode length and step
+TACO_TOL = 1e-4
+TACO_WAV_RTOL = 1e-4
+TACO_DEEMPH_RTOL = 1e-6
+TACO_SEED = 12
+TACO_STOP = (300, 137)
 
 
 def card() -> str:
@@ -1209,6 +1236,232 @@ def train_phase(cl, ref_mel, spk, failures):
     return {"train_serve": ran}
 
 
+def _sync_ms(fn):
+    """Host milliseconds of fn(), synchronised before and after, and its
+    result."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def tacotron_phase(cl, wav_ref, failures):
+    """Phase 10: GST-Tacotron serving (``TacotronSynthesizer``) at
+    configs/default's full width (embed 256, CBHG 128, attention and LSTMs
+    256, 4 x 10 style tokens, mel 80, num_freq 1025, r = 2, max_iters
+    1000, 60 Griffin-Lim iterations) on seeded weights and BatchNorm
+    statistics (``convert.seeded_flat``; no trained export exists), the
+    linear head's bias 0.5. The seeded decoder never emits an all-zero
+    step, so each decode runs all 1000 steps: 2000 frames, 25 s of audio.
+    The reference mel is the
+    seeded wav's (``taco_linear_and_mel``, on the card). Held against the
+    same port code on the CPU with the TACO_* bars; a stop check (a
+    frame_proj whose frames are all 0 at step TACO_STOP[1] alone) and the
+    random style without a reference run once. Failed checks go to
+    ``failures``; returns the launches of the text -> wav run
+    ({"tacotron": read_launches()}), all 0: the path runs no kernel of
+    the port."""
+    import statistics
+    import numpy as np
+    import torch
+    from etts_torch.api import TacotronSynthesizer
+    from etts_torch.convert import seeded_flat
+    from etts_torch.data.taco_audio import taco_linear_and_mel
+    from etts_torch.ops.griffin_lim import griffin_lim
+    from etts_torch.ops.normalizers import (db_to_amp, deemphasis,
+                                            denormalize_db)
+    from etts_torch.utils.config import build_tacotron, load_config
+    dev = torch.device("cuda")
+    flat = seeded_flat(build_tacotron(load_config(CONFIG, "tacotron")),
+                       TACO_SEED)
+    # the linear head's outputs centred in [0, 1], the range of its
+    # normalised dB, so that few bins clip at the floor
+    flat["['linear_proj']['bias']"][:] = 0.5
+    taco = TacotronSynthesizer(CONFIG, flat, "cuda")
+    host = TacotronSynthesizer(CONFIG, flat, "cpu")
+    m, mh, c = taco.model, host.model, taco.config
+    sr, steps = c["sampling_rate"], m.max_iters
+
+    def check(label, err, bar):
+        say(cl, f"tacotron {label}, card vs CPU: max |d| {err:.3e} (bar "
+                f"{bar:g})")
+        if not err <= bar:
+            failures.append(f"tacotron {label}")
+
+    d = lambda a, b: float((a.cpu() - b.cpu()).abs().max())
+    _, ref = taco_linear_and_mel(torch.from_numpy(wav_ref).to(dev), c)
+    ids = torch.from_numpy(taco.encode_text(SENTENCE))[None]
+    n = torch.tensor([ids.shape[1]])
+    u = mh.draw_uniforms(1, ids.shape[1], steps, seed=0)
+    ug = {k: v.to(dev) for k, v in u.items()}
+
+    # times first, before the CPU side computes (host clock, synchronised,
+    # warm, the median of 3): text -> wav, the counts read around it; then
+    # its parts
+    def median_ms(fn):
+        fn()
+        runs = [_sync_ms(fn) for _ in range(3)]
+        return statistics.median(ms for ms, _ in runs), runs
+
+    zero_launches()
+    e2e_ms, runs = median_ms(lambda: taco.synthesize(SENTENCE, ref))
+    ran = read_launches()
+    wav, align = runs[-1][1]
+    audio_s = wav.shape[0] / sr
+    say(cl, f"tacotron text -> wav: {ids.shape[1]} ids, {steps} steps, "
+            f"{wav.shape[0]} samples ({audio_s:.3f} s) in "
+            f"{', '.join(f'{ms:.1f}' for ms, _ in runs)} ms (median "
+            f"{e2e_ms:.1f}), RTF {e2e_ms / 1e3 / audio_s:.4f}; launches "
+            f"{ran} (4 runs)")
+    if (ran != {k: 0 for k in ran} or not np.isfinite(wav).all()
+            or wav.shape[0] != (steps * m.r - 1) * c["hop_length"]
+            or align.shape != (steps, ids.shape[1])):
+        failures.append("tacotron text -> wav")
+
+    def inv(linear, n_iter):
+        """The linear spectrogram's magnitude, then Griffin-Lim."""
+        S = denormalize_db(linear.T, c.get("min_level_db", -100))
+        mag = db_to_amp(S + c.get("ref_level_db", 20)) ** c.get("power", 1.5)
+        return griffin_lim(mag, c["n_fft"], c["hop_length"], c["win_length"],
+                           n_iter=n_iter)
+
+    gl_iters = c.get("griffin_lim_iters", 60)
+    with torch.no_grad():
+        enc_ms, _ = median_ms(lambda: m.encode(ids.to(dev), ref[None], ug))
+        gen_ms, runs = median_ms(lambda: m.generate(
+            ids.to(dev), n.to(dev), ref[None], uniforms=ug))
+        mel = runs[-1][1]["mel_outputs"]
+        head_ms, runs = median_ms(lambda: m.linear_proj(m.post_cbhg(mel)))
+        linear = runs[-1][1][0]
+        gl_ms, runs = median_ms(lambda: inv(linear, gl_iters))
+        gl_wav = runs[-1][1]
+        de_ms, _ = median_ms(lambda: deemphasis(gl_wav))
+    dec_ms = gen_ms - enc_ms - head_ms
+    say(cl, f"tacotron times (host, synchronised, warm, median of 3): "
+            f"encode {enc_ms:.2f} ms; decode {dec_ms / steps:.4f} ms/step "
+            f"({dec_ms:.1f} ms for {steps} steps: generate {gen_ms:.1f} ms "
+            f"less encode and head); post CBHG + linear {head_ms:.1f} ms; "
+            f"Griffin-Lim ({gl_iters} iterations, with the dB to magnitude) "
+            f"{gl_ms:.1f} ms; de-emphasis ({wav.shape[0]} samples) "
+            f"{de_ms:.2f} ms; text -> wav {e2e_ms:.1f} ms for "
+            f"{audio_s:.3f} s of audio, RTF {e2e_ms / 1e3 / audio_s:.4f}")
+
+    # the reference mel on the CPU from the same wav
+    check("reference mel", d(ref, taco_linear_and_mel(wav_ref, c)[1]),
+          TACO_TOL)
+
+    # the free-running decode on both sides, the same uniforms (drawn on
+    # the CPU from the seed), the CPU's cell steps recorded
+    rec = []
+    hook = mh.decoder_cell.register_forward_hook(
+        lambda mod, args, out: rec.append((args[0], args[1], args[5], out)))
+    out_h = mh.generate(ids, n, ref.cpu()[None], uniforms=u)
+    hook.remove()
+    out_g = m.generate(ids.to(dev), n.to(dev), ref.cpu()[None].to(dev),
+                       uniforms=ug)
+    per_step = lambda o: torch.cat(
+        [o["mel_outputs"][0].cpu().reshape(steps, -1),
+         o["alignments"][0].cpu()], -1)
+    free = (per_step(out_g) - per_step(out_h)).abs().amax(-1)
+    past = torch.nonzero(free > TACO_TOL)
+    say(cl, f"tacotron free-running decode, card vs CPU (same uniforms): "
+            f"within {TACO_TOL:g} for "
+            + (f"steps 0-{int(past[0]) - 1}; first step past the bar "
+               f"{int(past[0])} (max |d| there {float(free[past[0]]):.3e})"
+               if len(past) else f"all {steps} steps")
+            + f"; max |d| over the run {float(free.max()):.3e}")
+
+    # the encoder output, then every step teacher-fed: the card's cell from
+    # the CPU run's carry, fed-back frame and uniforms, on the CPU's keys
+    def leaves(x):
+        return [x] if torch.is_tensor(x) else [y for z in x for y in leaves(z)]
+
+    def to_card(x):
+        return x.to(dev) if torch.is_tensor(x) else tuple(map(to_card, x))
+
+    with torch.no_grad():
+        enc_h = mh.encode(ids, ref.cpu()[None], u)[0]
+        enc_g = m.encode(ids.to(dev), ref[None], ug)
+        check("encoder output", d(enc_g[0], enc_h), TACO_TOL)
+        keys, values = to_card((mh.memory_proj(enc_h), enc_h))
+        mask = torch.ones(1, ids.shape[1], dtype=torch.bool, device=dev)
+        w = m.decoder_cell.stacked()
+        err = 0.0
+        for carry, prev, ut, out in rec:
+            got = m.decoder_cell(*to_card((carry, prev)), keys, values, mask,
+                                 ut.to(dev), w)
+            err = max(err, max(d(a, b) for a, b in zip(leaves(got),
+                                                       leaves(out))))
+        check(f"decode, each of {len(rec)} steps teacher-fed (frames, "
+              "alignment, carry)", err, TACO_TOL)
+        # the post CBHG + linear head on the CPU run's mel
+        check("post CBHG + linear head", d(m.linear_proj(m.post_cbhg(
+            out_h["mel_outputs"].to(dev))), out_h["linear_outputs"]),
+            TACO_TOL)
+
+    # Griffin-Lim (2 iterations) and de-emphasis on the CPU run's linear
+    # spectrogram, on both sides; then de-emphasis alone on one wav
+    lin_h = out_h["linear_outputs"][0]
+    gl_h, gl_g = inv(lin_h, 2), inv(lin_h.to(dev), 2)
+    wav_h, wav_g = deemphasis(gl_h), deemphasis(gl_g)
+    peak = float(wav_h.abs().max())
+    check("wav after 2 Griffin-Lim iterations and de-emphasis, share of "
+          f"its peak {peak:.3e}", d(wav_g, wav_h) / peak, TACO_WAV_RTOL)
+    check("de-emphasis alone, share of the wav's peak",
+          d(deemphasis(gl_h.to(dev)), wav_h) / peak, TACO_DEEMPH_RTOL)
+
+    # the stop: frames all 0 at step TACO_STOP[1] alone; every later step
+    # zeroed on both sides, though their frame_proj emits frames again
+    n_stop, at = TACO_STOP
+
+    class ZeroAt(torch.nn.Module):
+        """A frame_proj whose frames are all 0 at step ``at`` of a decode
+        (it counts its calls on the device: no host read)."""
+
+        def __init__(self, proj):
+            super().__init__()
+            self.proj = proj
+            self.calls = torch.zeros((), dtype=torch.long,
+                                     device=proj.weight.device)
+
+        def forward(self, x):
+            y = self.proj(x) * (self.calls != at)
+            self.calls += 1
+            return y
+
+    zeroed = {}
+    for side, model in (("card", m), ("CPU", mh)):
+        cell = model.decoder_cell
+        proj, cell.frame_proj = cell.frame_proj, ZeroAt(cell.frame_proj)
+        dv = proj.weight.device
+        o = model.generate(ids.to(dv), n.to(dv), ref[None].to(dv),
+                           max_iters=n_stop, seed=0)
+        cell.frame_proj = proj
+        zeroed[side] = (o["mel_outputs"][0].reshape(n_stop, -1) == 0).all(
+            -1).cpu()
+    want = torch.arange(n_stop) >= at
+    first = lambda z: int(torch.nonzero(z)[0]) if z.any() else None
+    say(cl, f"tacotron stop check ({n_stop} steps, frames all 0 at step "
+            f"{at}): zeroed steps card {int(zeroed['card'].sum())} from "
+            f"{first(zeroed['card'])}, CPU {int(zeroed['CPU'].sum())} from "
+            f"{first(zeroed['CPU'])} (want {n_stop - at} from {at})")
+    if not (torch.equal(zeroed["card"], want)
+            and torch.equal(zeroed["CPU"], want)):
+        failures.append("tacotron stop check")
+
+    # no reference: the random style from the seed, the same on both sides
+    with torch.no_grad():
+        sty_g = m.encode(ids.to(dev), None, ug)[1]
+        sty_h = mh.encode(ids, None, u)[1]
+    check("random style (no reference)", d(sty_g, sty_h), TACO_TOL)
+    wav0, _ = taco.synthesize(SENTENCE, None, seed=1)
+    if not (np.isfinite(wav0).all() and wav0.shape == wav.shape):
+        failures.append("tacotron without a reference")
+    return {"tacotron": ran}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1220,8 +1473,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from etts_torch.utils.precision import pin_float32
+    pin_float32()
 
     # ---- 1. card, build ----
     cl = card()
@@ -1794,6 +2047,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths |= train_phase(cl, ref_mel, spk, failures)
     say(cl, f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. GST-Tacotron text -> wav through Griffin-Lim ----
+    t0 = time.perf_counter()
+    paths |= tacotron_phase(cl, wav_ref, failures)
+    say(cl, f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "fused_decode", "route": "cuda",

@@ -1,8 +1,10 @@
 """High-level synthesis API (port of ``etts/api.py``): ``TTSSynthesizer``
 (text + reference audio + speaker -> mel with the autoregressive model, or
-text -> mel with the forward model) and ``VocoderSynthesizer`` (mel ->
-waveform), both loading the flat npz weight exports, and the streamed
-synthesis ``TTSSynthesizer.stream``.
+text -> mel with the forward model), ``VocoderSynthesizer`` (mel ->
+waveform) and ``TacotronSynthesizer`` (GST-Tacotron text + reference mel
+-> waveform through Griffin-Lim), each loading a flat npz weight export,
+and the streamed synthesis ``TTSSynthesizer.stream``. Each constructor
+pins the checked float32 precision (``utils.precision``).
 
 On the card both run their CUDA kernels: the fused decode for one text
 when the model's geometry allows it (``can_fuse``), and the WaveRNN sample
@@ -23,11 +25,16 @@ from .convert import load_into
 from .models.autoregressive import autoregressive_predict
 from .models.wavernn import generate, generate_batch
 from .ops.audio import AudioProcessor
+from .ops.griffin_lim import griffin_lim
 from .ops.kernels.decoder_step import can_fuse, decode_weights, fused_decode
-from .utils.config import (build_forward, build_tts, build_vocoder,
-                           load_config, schedule_values, text_pipeline)
+from .ops.normalizers import db_to_amp, deemphasis, denormalize_db
+from .text import text_to_sequence
+from .utils.config import (build_forward, build_tacotron, build_tts,
+                           build_vocoder, load_config, schedule_values,
+                           text_pipeline)
+from .utils.precision import pin_float32
 
-__all__ = ["TTSSynthesizer", "VocoderSynthesizer"]
+__all__ = ["TTSSynthesizer", "VocoderSynthesizer", "TacotronSynthesizer"]
 
 
 def _style(gst_tokens, gst_attn) -> dict:
@@ -70,6 +77,7 @@ class TTSSynthesizer:
         if model_kind not in ("autoregressive", "forward"):
             raise ValueError("model_kind must be autoregressive|forward, got "
                              f"{model_kind!r}")
+        pin_float32()
         self.device = torch.device(device)
         self.model_kind = model_kind
         self.config = load_config(config_dir, model_kind)
@@ -280,6 +288,7 @@ class VocoderSynthesizer:
     their first use and kept; both int8 modes share them."""
 
     def __init__(self, config_dir, weights_npz, device="cuda"):
+        pin_float32()
         self.device = torch.device(device)
         self.config = load_config(config_dir, "wavernn")
         self.model = load_into(build_vocoder(self.config),
@@ -334,3 +343,49 @@ class VocoderSynthesizer:
             mu_law=self._pick(mu_law, "mu_law", True), seed=seed,
             **self._loop_args(int8_weights))
         return [w.cpu().numpy() for w in wavs]
+
+
+class TacotronSynthesizer:
+    """GST-Tacotron text (+ reference mel) -> waveform through its linear
+    spectrogram (`etts/api.py:356-406`): keithito text ids, one
+    ``Tacotron.generate`` of the config's ``max_iters`` steps on the
+    device, then dB denormalisation, the power raise, Griffin-Lim and
+    de-emphasis on the device."""
+
+    def __init__(self, config_dir, weights_npz, device="cuda"):
+        pin_float32()
+        self.device = torch.device(device)
+        self.config = load_config(config_dir, "tacotron")
+        self.model = load_into(build_tacotron(self.config),
+                               weights_npz).to(self.device)
+
+    def encode_text(self, text: str) -> np.ndarray:
+        return np.asarray(text_to_sequence(
+            text, [self.config.get("cleaners", "english_cleaners")]),
+            np.int64)
+
+    @torch.no_grad()
+    def synthesize(self, text, reference_mel=None, seed: int = 0):
+        """-> (wav ((max_iters * r - 1) * hop,), alignment (max_iters, n
+        ids)), numpy. ``reference_mel`` (t, num_mels) in [0, 1], numpy or
+        a tensor (``data.taco_audio.taco_linear_and_mel``'s mel); without
+        it the style is a random mix of the tokens. ``seed`` seeds the
+        prenets' dropout and that mix (``Tacotron.draw_uniforms``)."""
+        seq = self.encode_text(text)
+        ids = torch.from_numpy(seq)[None].to(self.device)
+        ref = (None if reference_mel is None else torch.as_tensor(
+            reference_mel, dtype=torch.float32, device=self.device)[None])
+        out = self.model.generate(
+            ids, torch.tensor([len(seq)], device=self.device), ref,
+            seed=seed)
+        wav = self._inv_linear(out["linear_outputs"][0])
+        return wav.cpu().numpy(), out["alignments"][0].cpu().numpy()
+
+    def _inv_linear(self, linear):
+        """Linear spectrogram (t, num_freq) in [0, 1] -> waveform."""
+        c = self.config
+        S = denormalize_db(linear.T, c.get("min_level_db", -100))
+        mag = db_to_amp(S + c.get("ref_level_db", 20)) ** c.get("power", 1.5)
+        wav = griffin_lim(mag, c["n_fft"], c["hop_length"], c["win_length"],
+                          n_iter=c.get("griffin_lim_iters", 60))
+        return deemphasis(wav, c.get("preemphasis", 0.97))

@@ -18,14 +18,17 @@ def gru_cell(gi, h, wh, bh):
     return (1.0 - z) * n + z * h
 
 
-def gru_scan(wi, wh, bi, bh, xs, h0=None):
+def gru_scan(wi, wh, bi, bh, xs, h0=None, reverse: bool = False):
     """xs (b, t, in) -> (outputs (b, t, h), final h); the input projection
-    for all steps is one matmul, only the recurrent one is sequential."""
+    for all steps is one matmul, only the recurrent one is sequential.
+    ``reverse`` runs from the last step to the first, each output kept at
+    its step's place, as ``lax.scan(reverse=True)`` does (the backward half
+    of Tacotron's CBHG BiGRU, `etts/models/tacotron.py:122-123`)."""
     b, t, _ = xs.shape
     h = xs.new_zeros(b, wh.shape[0]) if h0 is None else h0
     gi_all = xs @ wi + bi
-    ys = []
-    for i in range(t):
+    ys = [None] * t
+    for i in (reversed(range(t)) if reverse else range(t)):
         h = gru_cell(gi_all[:, i], h, wh, bh)
-        ys.append(h)
+        ys[i] = h
     return torch.stack(ys, 1), h

@@ -1,5 +1,6 @@
-"""Mel normalizers (normalize and denormalize) and mu-law decoding (port
-of ``etts/ops/normalizers.py:26-120``)."""
+"""Mel normalizers (normalize and denormalize), mu-law decoding, and the
+Tacotron path's dB normalization and pre-/de-emphasis filters (port of
+``etts/ops/normalizers.py:26-141``)."""
 from __future__ import annotations
 
 import math
@@ -7,7 +8,8 @@ import math
 import torch
 
 __all__ = ["MelGAN", "WaveRNNNorm", "get_normalizer", "mu_law_decode",
-           "db_to_amp"]
+           "amp_to_db", "db_to_amp", "normalize_db", "denormalize_db",
+           "preemphasis", "deemphasis"]
 
 
 def amp_to_db(x):
@@ -65,3 +67,47 @@ def mu_law_decode(y, mu: int, from_labels: bool = True):
         y = 2.0 * y / (2.0 ** math.log2(mu) - 1.0) - 1.0
     m = mu - 1
     return torch.sign(y) / m * ((1 + m) ** torch.abs(y) - 1.0)
+
+
+def normalize_db(S_db, min_level_db: float = -100.0):
+    """dB -> [0, 1] (`WaveRNN/utility/dsp.py:54-55`)."""
+    return torch.clamp((S_db - min_level_db) / -min_level_db, 0.0, 1.0)
+
+
+def denormalize_db(S, min_level_db: float = -100.0):
+    return torch.clamp(S, 0.0, 1.0) * -min_level_db + min_level_db
+
+
+def preemphasis(x, coef: float = 0.97):
+    """y[t] = x[t] - coef * x[t-1] (FIR; `WaveRNN/utility/dsp.py:86-87`)."""
+    return torch.cat([x[:1], x[1:] - coef * x[:-1]])
+
+
+# samples a block of deemphasis: one (block, block) product per level
+_IIR_BLOCK = 256
+
+
+def deemphasis(x, coef: float = 0.97):
+    """The inverse filter y[t] = x[t] + coef * y[t-1], y[-1] = 0, on x's
+    device, float32 out. etts runs it as a float32 ``lax.scan``, one
+    sample a step; here it is blockwise in float64, with no loop over
+    samples: within a block of ``_IIR_BLOCK`` samples, a product with the
+    lower-triangular matrix of powers coef^(i - j); across blocks, the
+    true last sample of the block before times coef^(i + 1), those last
+    samples being the same recurrence at coef^block, solved the same way."""
+    return _iir(x.double(), coef).float()
+
+
+def _iir(x, coef: float):
+    n, b = x.shape[0], _IIR_BLOCK
+    i = torch.arange(min(n, b), device=x.device)
+    powers = torch.tensor(coef, dtype=x.dtype, device=x.device) ** i
+    diff = i[:, None] - i[None, :]
+    lower = torch.where(diff >= 0, powers[diff.clamp(min=0)], 0.0)
+    if n <= b:
+        return lower @ x
+    nb = -(-n // b)
+    local = torch.nn.functional.pad(x, (0, nb * b - n)).view(nb, b) @ lower.T
+    last = _iir(local[:, -1], coef ** b)       # each block's true last sample
+    carry = torch.cat([last.new_zeros(1), last[:-1]])
+    return (local + carry[:, None] * (powers * coef)).reshape(-1)[:n]

@@ -87,6 +87,8 @@ def main(argv=None):
     import torch
 
     from .api import TTSSynthesizer, VocoderSynthesizer
+    from .utils.precision import pin_float32
+    pin_float32()
     tts = TTSSynthesizer(a.tts_config, a.tts_weights, a.device,
                          step=a.tts_step,
                          phonemizer_backend=a.phonemizer_backend,

@@ -1,15 +1,19 @@
 """Text frontend: cleaner -> phonemizer -> tokenizer.
 
 Own copy of the framework-free ``etts.text`` pipeline (the port imports
-nothing of ``etts``), without the Tacotron-only keithito/CMUDict stack.
-Parity with `TransformerTTS/preprocessing/text/__init__.py:6-40`.
+nothing of ``etts``), with the keithito/CMUDict stack of the GST-Tacotron
+path (`gst_tacotron/text/`). Parity with
+`TransformerTTS/preprocessing/text/__init__.py:6-40`.
 """
-from .symbols import _phonemes, _punctuations
+from .symbols import _phonemes, _punctuations, keithito_symbols
 from .cleaners import English, German
 from .tokenizer import Tokenizer, Phonemizer
+from .cmudict import CMUDict
+from .keithito import text_to_sequence, sequence_to_text
 
 __all__ = ["Pipeline", "English", "German", "Tokenizer", "Phonemizer",
-           "default_tokenizer"]
+           "default_tokenizer", "CMUDict", "text_to_sequence",
+           "sequence_to_text", "keithito_symbols"]
 
 
 def default_tokenizer(add_start_end: bool) -> Tokenizer:

@@ -1,16 +1,19 @@
 """Text cleaners for both frontends.
 
 ``English``/``German`` mirror `TransformerTTS/preprocessing/text/cleaners.py`
-(char filtering -> number expansion -> abbreviation collapse). Copy of
-``etts/text/cleaners.py`` without the Tacotron (keithito) cleaners.
+(char filtering -> number expansion -> abbreviation collapse). The keithito
+family (`gst_tacotron/text/cleaners.py`) provides english/transliteration/basic
+cleaners; unidecode is replaced by an NFKD accent-stripping transliteration.
+Copy of ``etts/text/cleaners.py``.
 """
 from __future__ import annotations
 
 import re
+import unicodedata
 from typing import Union
 
 from .symbols import _alphabet, _punctuations, _numbers
-from .numbers_en import Numbers
+from .numbers_en import Numbers, normalize_numbers
 
 
 class English:
@@ -95,3 +98,64 @@ class German:
         text = self.numbers.expand_number(text)
         return text + '.' if ends_with_dot else text
 
+
+# ---------------------------------------------------------------------------
+# keithito cleaners (Tacotron path)
+# ---------------------------------------------------------------------------
+
+_whitespace_re = re.compile(r'\s+')
+
+_keithito_abbreviations = [(re.compile(r'\b%s\.' % abbr, re.IGNORECASE), full)
+                           for abbr, full in [
+    ('mrs', 'misess'), ('mr', 'mister'), ('dr', 'doctor'), ('st', 'saint'),
+    ('co', 'company'), ('jr', 'junior'), ('maj', 'major'), ('gen', 'general'),
+    ('drs', 'doctors'), ('rev', 'reverend'), ('lt', 'lieutenant'),
+    ('hon', 'honorable'), ('sgt', 'sergeant'), ('capt', 'captain'),
+    ('esq', 'esquire'), ('ltd', 'limited'), ('col', 'colonel'), ('ft', 'fort')]]
+
+
+def expand_abbreviations(text):
+    for regex, repl in _keithito_abbreviations:
+        text = regex.sub(repl, text)
+    return text
+
+
+def expand_numbers(text):
+    return normalize_numbers(text)
+
+
+def lowercase(text):
+    return text.lower()
+
+
+def collapse_whitespace(text):
+    return _whitespace_re.sub(' ', text)
+
+
+def convert_to_ascii(text):
+    """Accent-stripping transliteration (NFKD), standing in for unidecode."""
+    nfkd = unicodedata.normalize('NFKD', text)
+    return ''.join(c for c in nfkd if ord(c) < 128)
+
+
+def basic_cleaners(text):
+    return collapse_whitespace(lowercase(text))
+
+
+def transliteration_cleaners(text):
+    return collapse_whitespace(lowercase(convert_to_ascii(text)))
+
+
+def english_cleaners(text):
+    text = convert_to_ascii(text)
+    text = lowercase(text)
+    text = expand_numbers(text)
+    text = expand_abbreviations(text)
+    return collapse_whitespace(text)
+
+
+KEITHITO_CLEANERS = {
+    'basic_cleaners': basic_cleaners,
+    'transliteration_cleaners': transliteration_cleaners,
+    'english_cleaners': english_cleaners,
+}

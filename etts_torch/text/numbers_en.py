@@ -3,8 +3,8 @@
 Replaces the ``num2words`` dependency of
 `TransformerTTS/preprocessing/text/numbers.py` and the ``inflect`` dependency
 of `gst_tacotron/text/numbers.py` — neither library is assumed available.
-Copy of ``etts/text/numbers_en.py`` without the Tacotron-only ordinal, year
-and money rules.
+Provides cardinals, ordinals, year-style grouping, and the keithito
+money/comma/decimal normalization rules. Copy of ``etts/text/numbers_en.py``.
 """
 from __future__ import annotations
 
@@ -43,6 +43,36 @@ def number_to_words(n: int, andword: str = 'and') -> str:
                 return head + f' {andword} ' + number_to_words(rem, andword)
             return head + ' ' + number_to_words(rem, andword)
     return _ONES[n]  # unreachable
+
+
+def number_to_ordinal_words(n: int) -> str:
+    words = number_to_words(n)
+    pieces = re.split(r'([ -])', words)
+    last = pieces[-1]
+    if last in _ORDINAL_IRREGULAR:
+        pieces[-1] = _ORDINAL_IRREGULAR[last]
+    elif last.endswith('y'):
+        pieces[-1] = last[:-1] + 'ieth'
+    else:
+        pieces[-1] = last + 'th'
+    return ''.join(pieces)
+
+
+def year_to_words(n: int) -> str:
+    """keithito year grouping: 1905 -> 'nineteen oh five', 2008 -> 'two thousand eight'
+    (behavior of `gst_tacotron/text/numbers.py:46-57`)."""
+    if not (1000 < n < 3000):
+        return number_to_words(n, andword='')
+    if n == 2000:
+        return 'two thousand'
+    if 2000 < n < 2010:
+        return 'two thousand ' + number_to_words(n % 100, andword='')
+    if n % 100 == 0:
+        return number_to_words(n // 100, andword='') + ' hundred'
+    head = number_to_words(n // 100, andword='')
+    tail = n % 100
+    tail_words = 'oh ' + _ONES[tail] if tail < 10 else number_to_words(tail, andword='')
+    return head + ' ' + tail_words
 
 
 # ---------------------------------------------------------------------------
@@ -131,3 +161,44 @@ class Numbers:
         return self._number_re.sub(
             lambda m: cardinal(int(m.group(0)), self.lang_ID), text)
 
+
+# ---------------------------------------------------------------------------
+# keithito-style normalize_numbers (`gst_tacotron/text/numbers.py:62-69`)
+# ---------------------------------------------------------------------------
+
+_comma_number_re = re.compile(r'([0-9][0-9\,]+[0-9])')
+_decimal_number_re = re.compile(r'([0-9]+\.[0-9]+)')
+_pounds_re = re.compile(r'£([0-9\,]*[0-9]+)')
+_dollars_re = re.compile(r'\$([0-9\.\,]*[0-9]+)')
+_ordinal_re = re.compile(r'[0-9]+(st|nd|rd|th)')
+_number_re = re.compile(r'[0-9]+')
+
+
+def _expand_dollars(m):
+    match = m.group(1)
+    parts = match.split('.')
+    if len(parts) > 2:
+        return match + ' dollars'
+    dollars = int(parts[0]) if parts[0] else 0
+    cents = int(parts[1]) if len(parts) > 1 and parts[1] else 0
+    if dollars and cents:
+        return '%s %s, %s %s' % (dollars, 'dollar' if dollars == 1 else 'dollars',
+                                 cents, 'cent' if cents == 1 else 'cents')
+    if dollars:
+        return '%s %s' % (dollars, 'dollar' if dollars == 1 else 'dollars')
+    if cents:
+        return '%s %s' % (cents, 'cent' if cents == 1 else 'cents')
+    return 'zero dollars'
+
+
+def normalize_numbers(text: str) -> str:
+    text = _comma_number_re.sub(lambda m: m.group(1).replace(',', ''), text)
+    text = _pounds_re.sub(r'\1 pounds', text)
+    text = _dollars_re.sub(_expand_dollars, text)
+    text = _decimal_number_re.sub(
+        lambda m: m.group(1).replace('.', ' point '), text)
+    text = _ordinal_re.sub(
+        lambda m: number_to_ordinal_words(int(re.sub(r'(st|nd|rd|th)$', '', m.group(0)))),
+        text)
+    text = _number_re.sub(lambda m: year_to_words(int(m.group(0))), text)
+    return text

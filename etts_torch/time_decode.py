@@ -44,11 +44,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from etts_torch import api
+    from etts_torch.utils.precision import pin_float32
+    pin_float32()
     if not torch.cuda.is_available():
         print("time_decode: no CUDA device", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cl = cs.card()
     print(cl, flush=True)
     apis = {"this": api}

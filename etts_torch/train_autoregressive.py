@@ -48,6 +48,7 @@ from .utils.checkpoints import CheckpointManager
 from .utils.config import (ConfigManager, build_tts,
                            piecewise_linear_schedule, step_schedule)
 from .utils.logging import ScalarLog, ValueWindow
+from .utils.precision import pin_float32
 
 SEED = 42               # etts' PRNGKey(42)
 LOSS_LIMIT = 1e4        # etts' explosion guard
@@ -109,6 +110,7 @@ def main(argv=None):
                         "style reference stay ground truth")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    pin_float32()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on "

@@ -1,8 +1,8 @@
 """Read a config dir (``data_config.yaml`` + ``{kind}_config.yaml``) and build
 the port's models: the counterpart of ``ConfigManager.get_model``
-(``etts/utils/config.py:145-305``) for the AR TTS, forward TTS and WaveRNN
-families; and ``ConfigManager``'s session directories, which a training
-driver uses."""
+(``etts/utils/config.py:145-305``) for the AR TTS, forward TTS, WaveRNN
+and GST-Tacotron families; and ``ConfigManager``'s session directories,
+which a training driver uses."""
 from __future__ import annotations
 
 import shutil
@@ -16,7 +16,7 @@ import yaml
 from ..text import Pipeline
 
 __all__ = ["load_config", "text_pipeline", "build_tts", "build_forward",
-           "build_vocoder", "schedule_values", "step_schedule",
+           "build_vocoder", "build_tacotron", "schedule_values", "step_schedule",
            "piecewise_linear_schedule", "ConfigManager"]
 
 
@@ -253,3 +253,34 @@ def build_vocoder(config: dict):
         res_out_dims=c.get("voc_res_out_dims", 128),
         res_blocks=c.get("voc_res_blocks", 10), hop_length=c["hop_length"],
         mode=c.get("voc_mode", "MOL"))
+
+
+def build_tacotron(config: dict):
+    """The GST-Tacotron of ``tacotron_config.yaml`` (merged with the data
+    config), every key read with etts' default
+    (``etts/utils/config.py:234-257``); the vocabulary is the keithito
+    symbol table. ``encoder_depth``, which etts reads and no module uses,
+    is not read; ``ref_proj_dim`` stays 128, as etts never reads it."""
+    from ..models.tacotron import Tacotron
+    from ..text import keithito_symbols
+    c = config
+    return Tacotron(
+        vocab_size=len(keithito_symbols),
+        embed_depth=c.get("embed_depth", 256),
+        attention_depth=c.get("attention_depth", 256),
+        rnn_depth=c.get("rnn_depth", 256),
+        num_mels=c["mel_channels"],
+        num_freq=c.get("num_freq", 1025),
+        outputs_per_step=c.get("outputs_per_step", 2),
+        prenet_depths=tuple(c.get("prenet_depths", (256, 128))),
+        use_gst=c.get("use_gst", True),
+        num_gst=c.get("num_gst", 10),
+        num_heads=c.get("num_heads", 4),
+        style_embed_depth=c.get("style_embed_depth", 256),
+        style_att_dim=c.get("style_att_dim", 128),
+        style_att_type=c.get("style_att_type", "mlp_attention"),
+        reference_filters=tuple(c.get("reference_filters",
+                                      (32, 32, 64, 64, 128, 128))),
+        reference_depth=c.get("reference_depth", 128),
+        cbhg_width=c.get("cbhg_width", 128),
+        max_iters=c.get("max_iters", 1000))

@@ -36,4 +36,7 @@ def test_port_imports_no_jax_flax_or_etts():
             "etts_torch.data.dataset", "etts_torch.models.mine",
             "etts_torch.models.init", "etts_torch.utils.losses",
             "etts_torch.utils.checkpoints", "etts_torch.utils.logging",
-            "etts_torch.train_autoregressive"} <= set(modules)
+            "etts_torch.train_autoregressive", "etts_torch.models.tacotron",
+            "etts_torch.eval_tacotron", "etts_torch.text.keithito",
+            "etts_torch.text.cmudict", "etts_torch.data.taco_audio",
+            "etts_torch.utils.precision"} <= set(modules)

@@ -467,3 +467,79 @@ def assert_step_close(j, p, rtol=1e-4, atol=1e-7, metric_atol=1e-7):
     for k, w in flat(jmet).items():
         np.testing.assert_allclose(float(flat(tmet)[k]), float(w),
                                    rtol=1e-5, atol=metric_atol, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# GST-Tacotron parity (test_torch_tacotron*.py)
+# ---------------------------------------------------------------------------
+
+# tests/test_tacotron.py's TINY: every width cut, K = 16 and 8 kept
+TACO_TINY = dict(vocab_size=30, embed_depth=16, attention_depth=16,
+                 rnn_depth=16, num_mels=10, num_freq=33, outputs_per_step=2,
+                 prenet_depths=(16, 8), num_gst=4, num_heads=2,
+                 style_embed_depth=16, style_att_dim=8,
+                 reference_filters=(4, 8), reference_depth=8, max_iters=6,
+                 cbhg_width=8)
+
+
+def flax_shapes(jmodule, *args, **kwargs) -> dict:
+    """{keystr: shape} of every variable of ``jmodule.init(rngs, *args,
+    **kwargs)``, batch statistics under the ``batch_stats:`` prefix, from
+    ``jax.eval_shape``: no initialiser runs (flax's take some 20 s to
+    compile for a tiny Tacotron)."""
+    k = jax.random.PRNGKey(0)
+    rngs = {n: k for n in ("params", "prenet", "zoneout", "dropout",
+                           "style")}
+    tree = jax.eval_shape(lambda: jmodule.init(rngs, *args, **kwargs))
+    out = {}
+    for col, prefix in (("params", ""), ("batch_stats", "batch_stats:")):
+        for path, leaf in jax.tree_util.tree_leaves_with_path(
+                tree.get(col, {})):
+            out[prefix + jax.tree_util.keystr(path)] = leaf.shape
+    return out
+
+
+def draw_flat(shapes: dict, seed=0) -> dict:
+    """Weights of those shapes in the flat export layout, drawn with numpy:
+    kernels and matrices normal 1 / sqrt(fan in) in flax's (..., in, out)
+    layout, BatchNorm means normal 0.1 and variances uniform in [0.5,
+    1.5], scales 1 + normal 0.1, other parameters normal 0.1."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, shape in shapes.items():
+        if key.endswith("['var']"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif key.endswith("['scale']"):
+            a = 1.0 + rng.normal(0.0, 0.1, shape)
+        elif len(shape) >= 2:
+            a = rng.normal(0.0, float(np.prod(shape[:-1])) ** -0.5, shape)
+        else:
+            a = rng.normal(0.0, 0.1, shape)
+        flat[key] = a.astype(np.float32)
+    return flat
+
+
+@functools.lru_cache(maxsize=8)
+def _taco_tree(over):
+    from etts.models.tacotron import Tacotron as JT
+    jm = JT(**dict(TACO_TINY, **dict(over)))
+    return jm, flax_shapes(jm, jnp.ones((2, 7), jnp.int32),
+                           jnp.array([7, 5]),
+                           jnp.zeros((2, 12, TACO_TINY["num_mels"])))
+
+
+def taco_flat(seed=0, **over) -> dict:
+    """``draw_flat`` weights for every variable of the flax Tacotron of
+    TACO_TINY and ``over``."""
+    return draw_flat(_taco_tree(tuple(sorted(over.items())))[1], seed)
+
+
+def taco_pair(seed=0, flat=None, **over):
+    """(flax Tacotron, its variables, the port's Tacotron) of TACO_TINY and
+    ``over`` on one set of weights (``taco_flat``'s, or ``flat``), carried
+    into the port by ``convert``."""
+    from etts_torch.models.tacotron import Tacotron as TT
+    jm, _ = _taco_tree(tuple(sorted(over.items())))
+    flat = taco_flat(seed, **over) if flat is None else flat
+    tm = load_into(TT(**dict(TACO_TINY, **over)), flat)
+    return jm, unflatten(flat), tm
