@@ -83,8 +83,8 @@ Phases (any failure exits non-zero and prints no result line):
      depth with the MINE zoo, on a seeded corpus the phase writes; one
      train step on the card against the CPU from the same init and batch
      (TRAIN_LOSS_TOL, TRAIN_GRAD_RTOL); the driver
-     ``python -m etts_torch.train_autoregressive`` for 20 steps, then
-     resumed to 30; its step and zoo times, target frames a second and
+     ``python -m etts_torch.train_autoregressive`` (its ``main``, in this
+     process) for 20 steps, then resumed to 30; its step and zoo times, target frames a second and
      peak memory; the trained BatchNorm statistics moved; the step-30
      weights exported and served through TTSSynthesizer: one fused decode
      launch, its mel within DECODE_TOL of the plain decode;
@@ -97,7 +97,18 @@ Phases (any failure exits non-zero and prints no result line):
      run, the head, the wav after 2 Griffin-Lim iterations and
      de-emphasis, de-emphasis alone, a stop inside the run, the random
      style without a reference; the free-running decode's first step past
-     the bar printed; times and the real-time factor.
+     the bar printed; times and the real-time factor;
+  11. the forward model's training (forward_train_phase): the AR model
+     trained to r = 1 on phase 9's corpus, ``python -m
+     etts_torch.extract_durations`` (triple counts, duration sums, card
+     against CPU), one forward train step card against CPU (float64 at
+     the FT_* bars, float32 at phase 9's) and its split, ``python -m
+     etts_torch.train_forward`` for 20 steps and resumed to 30 against
+     one run of 30 (each entry point's ``main``, in this process), and
+     the step-30 export
+     through TTSSynthesizer(model_kind="forward") and the bf16 sample
+     loop (launches read around it, the call held against its plain
+     version); times, peak memory and the real-time factor.
 
 The port computes in float32 without TF32 (``utils/precision.py``), as
 every entry point sets it.
@@ -211,6 +222,28 @@ TACO_WAV_RTOL = 1e-4
 TACO_DEEMPH_RTOL = 1e-6
 TACO_SEED = 12
 TACO_STOP = (300, 137)
+# phase 11: the forward model's training flow on phase 9's corpus. The AR
+# model trained FT_AR_STEPS steps at r = 1; the test split the corpus's
+# last FT_VAL utterances; extraction card against CPU on FT_CPU_ROWS rows:
+# the last block's attention within FT_ATT_TOL (max |d|), the durations
+# equal but at a rounding tie (the normalised duration within FT_TIE of a
+# half-integer); one forward train step card against CPU on FT_CPU_ROWS
+# rows with tests/torch_parity.py::assert_step_close's bars: the loss
+# FT_LOSS_TOL relative, each gradient ||d|| <= FT_GRAD_RTOL * ||g|| +
+# FT_GRAD_ATOL (FT_GRAD_ATOL for those zero in exact arithmetic), the
+# BatchNorm statistics FT_STATS_TOL (max |d|); the driver's steps (a run,
+# then resumed); the sentence served
+FT_AR_STEPS = 10
+FT_VAL = 8
+FT_CPU_ROWS = 2
+FT_ATT_TOL = 1e-5
+FT_TIE = 1e-5
+FT_LOSS_TOL = 1e-5
+FT_GRAD_RTOL = 1e-4
+FT_GRAD_ATOL = 1e-7
+FT_STATS_TOL = 1e-6
+FT_STEPS = (20, 30)
+FT_TEXT = "Hello there."
 
 
 def card() -> str:
@@ -674,6 +707,56 @@ def stream_phase(cl, tts, voc, ref_mel, spk, mel, failures):
     return paths
 
 
+def held(cl, vm, label, cond, wts, wdt, failures, state=None, seed=8):
+    """The sample loop of vocoder model ``vm`` on ``cond`` from ``state``,
+    against its plain version fed the kernel's samples, shared uniforms:
+    phase 3's bar (STEP_AGREE_BF16 of the steps within STEP_TOL; the int8
+    kernel's too, as phase 3b holds it). A failure goes to ``failures``.
+    Returns the kernel's max |d| from the plain version."""
+    import torch
+    from etts_torch.ops.kernels import wavernn_cell as wcell
+    dev = cond.device
+    T, B, _ = cond.shape
+    u = torch.rand(T, B, wcell.n_draw(vm.mode, vm.n_classes, wts.n_out),
+                   device=dev, generator=torch.Generator(dev).manual_seed(
+                       seed))
+    kw = dict(mode=vm.mode, n_classes=vm.n_classes, noise=u,
+              weight_dtype=wdt, state=state)
+    ms, (k_out, _) = cuda_ms(
+        lambda: wcell.wavernn_sample_loop(cond, wts, **kw), 1, warm=False)
+    t_out, _ = wcell.wavernn_sample_loop_plain(cond, wts, teacher=k_out,
+                                               **kw)
+    diff = (k_out - t_out).abs()
+    agree = float((diff <= STEP_TOL).float().mean())
+    say(cl, f"wavernn_sample_loop {wdt or 'bf16'} vs plain ({label}), "
+            f"B={B} T={T}: per-step (same history) max |d| "
+            f"{float(diff.max()):.3e}, {agree:.6f} of steps within "
+            f"{STEP_TOL} (bar {STEP_AGREE_BF16}); "
+            f"{float((k_out.abs() < 1).float().mean()):.4f} of samples "
+            f"inside (-1, 1); kernel {ms:.2f} ms")
+    if agree < STEP_AGREE_BF16 or not bool(torch.isfinite(k_out).all()):
+        failures.append(f"wavernn_sample_loop {wdt or 'bf16'} vs plain "
+                        f"({label})")
+    return float(diff.max())
+
+
+def vocoder_cond(voc, mel):
+    """The sample loop's conditioning for a TTS mel (t, n_mels) in [-4,
+    4], folded as VocoderSynthesizer.generate folds it."""
+    import torch
+    import torch.nn.functional as F
+    from etts_torch.models.wavernn import (_clamp_mels, _conditioning_streams,
+                                           fold_with_overlap)
+    vm = voc.model
+    target = voc.config.get("voc_target", 11000)
+    overlap = voc.config.get("voc_overlap", 550)
+    with torch.no_grad():
+        vmel = _clamp_mels(torch.from_numpy((mel + 4.0) / 8.0).to("cuda"))
+        up, aux = vm.upsample(F.pad(vmel[None], (0, 0, vm.pad, vm.pad)))
+        return _conditioning_streams(fold_with_overlap(up, target, overlap),
+                                     fold_with_overlap(aux, target, overlap))
+
+
 def forward_phase(cl, voc, ref_mel, spk, seeded, failures):
     """Phase 8: the forward (duration) model of configs/default's
     forward_config.yaml (d 256, 4 + 4 dense blocks, FFN 1024, max_frames
@@ -688,14 +771,11 @@ def forward_phase(cl, voc, ref_mel, spk, seeded, failures):
     launches ({path: read_launches()})."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     import yaml
     from etts_torch import streaming
     from etts_torch.api import TTSSynthesizer
     from etts_torch.convert import seeded_flat
     from etts_torch.models.autoregressive import autoregressive_predict
-    from etts_torch.models.wavernn import (_clamp_mels, _conditioning_streams,
-                                           fold_with_overlap)
     from etts_torch.ops.kernels import wavernn_cell as wcell
     from etts_torch.ops.normalizers import mu_law_decode
     from etts_torch.utils.config import (build_forward, build_tts,
@@ -705,33 +785,6 @@ def forward_phase(cl, voc, ref_mel, spk, seeded, failures):
     sr, hop = voc.config["sampling_rate"], vm.hop_length
     mu_law = voc._pick(None, "mu_law", True) and vm.mode == "RAW"
     paths = {}
-
-    def held(label, cond, wts, wdt, state=None, seed=8):
-        """The sample loop on ``cond`` from ``state``, against its plain
-        version fed the kernel's samples, shared uniforms: phase 3's bar
-        (STEP_AGREE_BF16 of the steps within STEP_TOL; the int8 kernel's
-        too, as phase 3b holds it)."""
-        T, B, _ = cond.shape
-        u = torch.rand(T, B, wcell.n_draw(vm.mode, vm.n_classes, wts.n_out),
-                       device=dev, generator=torch.Generator(dev).manual_seed(
-                           seed))
-        kw = dict(mode=vm.mode, n_classes=vm.n_classes, noise=u,
-                  weight_dtype=wdt, state=state)
-        ms, (k_out, _) = cuda_ms(
-            lambda: wcell.wavernn_sample_loop(cond, wts, **kw), 1, warm=False)
-        t_out, _ = wcell.wavernn_sample_loop_plain(cond, wts, teacher=k_out,
-                                                   **kw)
-        diff = (k_out - t_out).abs()
-        agree = float((diff <= STEP_TOL).float().mean())
-        say(cl, f"wavernn_sample_loop {wdt or 'bf16'} vs plain ({label}), "
-                f"B={B} T={T}: per-step (same history) max |d| "
-                f"{float(diff.max()):.3e}, {agree:.6f} of steps within "
-                f"{STEP_TOL} (bar {STEP_AGREE_BF16}); "
-                f"{float((k_out.abs() < 1).float().mean()):.4f} of samples "
-                f"inside (-1, 1); kernel {ms:.2f} ms")
-        if agree < STEP_AGREE_BF16 or not bool(torch.isfinite(k_out).all()):
-            failures.append(f"wavernn_sample_loop {wdt or 'bf16'} vs plain "
-                            f"({label})")
 
     cfg = load_config(CONFIG, "forward")
     vocab = text_pipeline(cfg, "grapheme", "forward").tokenizer.vocab_size
@@ -768,13 +821,7 @@ def forward_phase(cl, voc, ref_mel, spk, seeded, failures):
     # VocoderSynthesizer.generate folds it: timed as generate calls it, and
     # held against its plain version at these shapes on the vocoder's
     # weights and on the seeded MOL weights, whose samples do not all clip
-    target = voc.config.get("voc_target", 11000)
-    overlap = voc.config.get("voc_overlap", 550)
-    with torch.no_grad():
-        vmel = _clamp_mels(torch.from_numpy((mel + 4.0) / 8.0).to(dev))
-        up, aux = vm.upsample(F.pad(vmel[None], (0, 0, vm.pad, vm.pad)))
-        cond = _conditioning_streams(fold_with_overlap(up, target, overlap),
-                                     fold_with_overlap(aux, target, overlap))
+    cond = vocoder_cond(voc, mel)
     b1_ms, _ = cuda_ms(lambda: wcell.wavernn_sample_loop(
         cond, voc.weights, mode=vm.mode, n_classes=vm.n_classes, seed=0), 1,
         warm=False)
@@ -782,7 +829,7 @@ def forward_phase(cl, voc, ref_mel, spk, seeded, failures):
                         voc.weights),
                        ("the forward path's shapes, seeded random weights",
                         seeded[None])):
-        held(label, cond, wts, None)
+        held(cl, vm, label, cond, wts, None, failures)
     say(cl, f"forward path: {ids.shape[1]} tokens, durations "
             f"{float(dur.min()):.2f}-{float(dur.max()):.2f} frames -> "
             f"{mel.shape[0]} of {cap} frames -> {wav.shape[0]} samples "
@@ -881,8 +928,9 @@ def forward_phase(cl, voc, ref_mel, spk, seeded, failures):
         _, st = wcell.wavernn_sample_loop(conds[0], sw, mode=vm.mode,
                                           n_classes=vm.n_classes, noise=u0,
                                           weight_dtype=wdt)
-        held("the forward stream's second chunk, from the first's state, "
-             "seeded random weights", conds[1], sw, wdt, state=st)
+        held(cl, vm, "the forward stream's second chunk, from the first's "
+             "state, seeded random weights", conds[1], sw, wdt, failures,
+             state=st)
 
     # a conv-decoder AR model with prosody statistics (configs/default's AR
     # widths, 2 dense + 2 conv blocks in the encoder and the decoder),
@@ -967,39 +1015,32 @@ def write_corpus(d: Path, n: int, seed: int = 0):
     (d / "train_metafile.txt").write_text("".join(lines))
 
 
-def step_split(cl, model, host, r, c, reps=5):
-    """Where a train step's time goes, on the card: ``reps`` Adam steps of
-    ``model`` on the batch ``host`` (after 2 warm-up steps), each split by
-    the host clock, synchronised, into the gradient (``torch.autograd.grad``),
-    the Adam update and the rest (the forward pass and the losses); then 3
-    steps under ``torch.profiler``: the device's busy time (the sum of the
-    kernels' times) over the profiled and over the unprofiled step, the
-    kernels a step, and the five kernels that take the most device
-    time."""
+def step_split(cl, label, state, run, reps=5):
+    """Where a train step's time goes, on the card: ``reps`` calls of
+    ``run``, one Adam step of the ``TrainState`` ``state`` each (after 2
+    warm-up steps), each split by the host clock, synchronised, into the
+    gradient (``torch.autograd.grad``), the Adam update and the rest (the
+    forward pass and the losses); then 3 steps under ``torch.profiler``:
+    the device's busy time (the sum of the kernels' times) over the
+    profiled and over the unprofiled step, the kernels a step, and the five
+    kernels that take the most device time. Returns the split's medians
+    in ms (step, forward and losses, gradient, Adam)."""
     import statistics
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from etts_torch.train.state import TrainState
-    from etts_torch.train.steps import make_autoregressive_train_step
-    from etts_torch.train_autoregressive import to_device
     sync = torch.cuda.synchronize
-    state = TrainState(model, c["learning_rate_tts_schedule"])
-    step = make_autoregressive_train_step(model,
-                                          stop_scaling=c["stop_loss_scaling"])
-    batch = to_device(host, "cuda")
     split = {"grad": 0.0, "adam": 0.0}
 
     def timed(fn, key):
-        def run(*a, **kw):
+        def wrapped(*a, **kw):
             sync()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             sync()
             split[key] += time.perf_counter() - t0
             return out
-        return run
+        return wrapped
 
-    run = lambda: step(state, batch, 0.0, 0, r=r, prenet_dropout=0.0)
     for _ in range(2):
         run()
     grad = torch.autograd.grad
@@ -1019,9 +1060,10 @@ def step_split(cl, model, host, r, c, reps=5):
         torch.autograd.grad = grad
     del state.apply_gradients
     med = [statistics.median(x) * 1e3 for x in zip(*rows)]
-    say(cl, f"train step split (median of {reps}, host clock, synchronised "
+    split_ms = (med[0], med[0] - med[1] - med[2], med[1], med[2])
+    say(cl, f"{label} split (median of {reps}, host clock, synchronised "
             f"around each part): {med[0]:.2f} ms = forward and losses "
-            f"{med[0] - med[1] - med[2]:.2f} + gradient {med[1]:.2f} + Adam "
+            f"{split_ms[1]:.2f} + gradient {med[1]:.2f} + Adam "
             f"{med[2]:.2f}")
     sync()
     t0 = time.perf_counter()
@@ -1039,18 +1081,59 @@ def step_split(cl, model, host, r, c, reps=5):
                and "#" not in e.name]
     busy = sum(e.device_time for e in kernels) / 3 / 1e3
     if not kernels:
-        say(cl, "train step under torch.profiler: no device time recorded "
+        say(cl, f"{label} under torch.profiler: no device time recorded "
                 "(device busy share not measured)")
-        return
+        return split_ms
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 3 / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    say(cl, f"train step under torch.profiler (3 steps): {wall:.2f} ms/step "
+    say(cl, f"{label} under torch.profiler (3 steps): {wall:.2f} ms/step "
             f"wall, device busy {busy:.2f} ms/step ({busy / wall:.1%} of it, "
             f"{busy / med[0]:.1%} of the unprofiled step), "
             f"{len(kernels) / 3:.0f} kernels a step; most device time: "
             + "; ".join(f"{n[:60]} {t:.2f} ms" for n, t in top))
+    return split_ms
+
+
+def run_main(main, argv):
+    """Run an entry point's ``main(argv)`` in this process (a process of
+    its own takes some 8 s to reach the card), its stdout kept. Returns
+    (seconds, stdout, the bytes the process held on the card before it):
+    a driver's logged ``max_memory_allocated`` less these is its own
+    peak."""
+    import contextlib
+    import io
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, buf.getvalue(), base
+
+
+def grad_capture(model, schedule):
+    """A ``TrainState`` of ``model`` whose ``apply_gradients`` keeps the
+    gradients on the CPU (``.grads``, in ``.names``' order) and updates
+    nothing."""
+    from etts_torch.train.state import TrainState
+
+    class Grads(TrainState):
+        def apply_gradients(self, grads):
+            self.grads = [g.detach().cpu() for g in grads]
+            self.step += 1
+    return Grads(model, schedule)
+
+
+def worst_grad(names, got, want, atol):
+    """(the largest (||got - want|| - atol) / ||want|| over the
+    gradients, its parameter's name): within RTOL where every gradient
+    has ||d|| <= RTOL * ||want|| + atol."""
+    return max(((float((a - b).norm()) - atol) / max(float(b.norm()), 1e-30),
+                n) for n, a, b in zip(names, got, want))
 
 
 def train_phase(cl, ref_mel, spk, failures):
@@ -1102,11 +1185,6 @@ def train_phase(cl, ref_mel, spk, failures):
                             corpus / "spk_embeds")
 
     # one step on the card against the CPU, dropout 0, from the same init
-    class Grads(TrainState):
-        def apply_gradients(self, grads):
-            self.grads = [g.detach().cpu() for g in grads]
-            self.step += 1
-
     host = Dataset(samples, DataPrepper(c, tok), c["tts_batch_size"],
                    mel_channels=c["mel_channels"]).next_batch()
     r = c["reduction_factor_schedule"][0][1]
@@ -1114,7 +1192,7 @@ def train_phase(cl, ref_mel, spk, failures):
     for where in ("cpu", "cuda"):
         model = build_tts(dict(c, dropout_rate=0.0), tok.vocab_size)
         init_flax(model, torch.Generator().manual_seed(SEED)).to(where)
-        state = Grads(model, c["learning_rate_tts_schedule"])
+        state = grad_capture(model, c["learning_rate_tts_schedule"])
         t0 = time.perf_counter()
         met, _ = make_autoregressive_train_step(
             model, stop_scaling=c["stop_loss_scaling"])(
@@ -1124,12 +1202,8 @@ def train_phase(cl, ref_mel, spk, failures):
         n_params = sum(p.numel() for p in model.parameters())
     (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = runs["cpu"], runs["cuda"]
     d_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
-    worst = max(((float((a - b).norm()) - TRAIN_GRAD_ATOL)
-                 / max(float(b.norm()), 1e-30), n)
-                for n, a, b in zip(state.names, g_gpu, g_cpu))
-    ok = d_loss <= TRAIN_LOSS_TOL and all(
-        float((a - b).norm()) <= TRAIN_GRAD_RTOL * float(b.norm())
-        + TRAIN_GRAD_ATOL for a, b in zip(g_gpu, g_cpu))
+    worst = worst_grad(state.names, g_gpu, g_cpu, TRAIN_GRAD_ATOL)
+    ok = d_loss <= TRAIN_LOSS_TOL and worst[0] <= TRAIN_GRAD_RTOL
     say(cl, f"train step, card vs CPU (float32, TF32 off, {n_params} "
             f"parameters, batch {host[0].shape}, r = {r}): loss {l_gpu:.7f} "
             f"vs {l_cpu:.7f} (relative {d_loss:.2e}, tol {TRAIN_LOSS_TOL}); "
@@ -1138,25 +1212,23 @@ def train_phase(cl, ref_mel, spk, failures):
             f"s on the card, {s_cpu:.3f} s on the CPU")
     if not ok:
         failures.append("train step, card vs CPU")
-    step_split(cl, model, host, r, c)
+    state = TrainState(model, c["learning_rate_tts_schedule"])
+    ar_step = make_autoregressive_train_step(
+        model, stop_scaling=c["stop_loss_scaling"])
+    batch = to_device(host, "cuda")
+    step_split(cl, "train step", state, lambda: ar_step(
+        state, batch, 0.0, 0, r=r, prenet_dropout=0.0))
 
     # the driver: 20 steps, then resumed to 30
-    outs = []
+    from etts_torch.train_autoregressive import main as train_main
+    outs, bases = [], {}
     for steps in TRAIN_STEPS:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "etts_torch.train_autoregressive",
-             "--config", str(cdir), "--session_name", "phase9",
-             "--max_steps", str(steps)], cwd=ROOT, capture_output=True,
-            text=True, timeout=600)
-        outs.append(proc.stdout)
-        say(cl, f"train_autoregressive --max_steps {steps}: exit "
-                f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; "
-                + " | ".join(proc.stdout.strip().splitlines()[-4:]))
-        if proc.returncode:
-            print(proc.stderr[-3000:], file=sys.stderr)
-            failures.append(f"train_autoregressive --max_steps {steps}")
-            return {}
+        secs, out, bases[steps - 1] = run_main(train_main, [
+            "--config", str(cdir), "--session_name", "phase9",
+            "--max_steps", str(steps)])
+        outs.append(out)
+        say(cl, f"train_autoregressive --max_steps {steps}: {secs:.1f} s; "
+                + " | ".join(out.strip().splitlines()[-4:]))
     if f"restored TTS weights at step {TRAIN_STEPS[0]}" not in outs[1]:
         failures.append("the resumed run did not restore step 20")
     sc = read_scalars(cm.log_dir)
@@ -1172,9 +1244,9 @@ def train_phase(cl, ref_mel, spk, failures):
             f" median {statistics.median(step_ms):.2f} ms/step (min "
             f"{min(step_ms):.2f}, max {max(step_ms):.2f}); "
             f"{frames / sum(step_ms) * 1e3:.0f} target frames/s; MINE zoo "
-            f"{mine_ms:.2f} ms/step; max_memory_allocated "
-            + ", ".join(f"{v / 2**30:.3f} GiB (run to {k + 1})"
-                        for k, v in sorted(peak.items()))
+            f"{mine_ms:.2f} ms/step; peak memory of the run "
+            + ", ".join(f"{(v - bases.get(k, 0)) / 2**30:.3f} GiB (run to "
+                        f"{k + 1})" for k, v in sorted(peak.items()))
             + f"; losses {dict(sorted(losses.items()))}")
     if not (sorted(losses) == [0, 10, 19, 20, 29]
             and all(math.isfinite(v) for v in losses.values())):
@@ -1234,6 +1306,341 @@ def train_phase(cl, ref_mel, spk, failures):
     if not (ok and ran == want and same):
         failures.append("the trained export through the fused decode")
     return {"train_serve": ran}
+
+
+def forward_train_phase(cl, voc, failures):
+    """Phase 11: the forward model's training flow, the reference's own
+    (train the AR model down to r = 1, extract durations, train the
+    forward model), at configs/default's full widths on phase 9's seeded
+    corpus, each entry point's ``main`` run in this process (a process of
+    its own takes some 8 s to reach the card):
+      1. ``train_autoregressive`` (d 256, 4 + 4 blocks, FFN 1024, GST,
+         postnet 5 x 256, batch 8) for FT_AR_STEPS steps, cut to
+         ``reduction_factor_schedule`` [[0, 1]] (from [[0, 10], [80000,
+         1]]), ``use_mine`` False, ``weights_save_frequency`` FT_AR_STEPS;
+      2. ``extract_durations`` on the card: the triple count of each split
+         (the test split: the corpus's last FT_VAL utterances, also in the
+         training split) against its metafile, every triple's durations
+         summing to its mel's frames; then the card against the CPU on
+         FT_CPU_ROWS rows from the same checkpoint (FT_ATT_TOL, FT_TIE);
+      3. one forward train step (forward_config.yaml: d 256, 4 + 4 blocks,
+         FFN 1024, postnet 5 x 256, ``max_frames`` 1280), the card against
+         the CPU on FT_CPU_ROWS triples, dropout 0, the same init: in
+         float64 at FT_LOSS_TOL, FT_GRAD_* and FT_STATS_TOL, and in float32
+         at phase 9's TRAIN_* bars and FT_STATS_TOL, each float32 side also
+         read against the CPU's float64 step (the card's float32 attention
+         at 1280 frames rounds some gradients above FT_GRAD_RTOL, where the
+         CPU's does not), and once more with the attention's softmax in
+         float64 (printed, not a check); the step's split at
+         ``tts_batch_size`` 16;
+      4. ``train_forward`` to FT_STEPS[0] steps, then resumed to
+         FT_STEPS[1], against one run to FT_STEPS[1]: the restore, the
+         step time, target frames a second, peak memory, and the largest
+         difference of the two sessions' weights at FT_STEPS[0] (two
+         uninterrupted runs: the gather's backward sums by atomics on the
+         card) and at FT_STEPS[1] (one resumed); cuts:
+         ``prediction_frequency`` and ``weights_save_frequency`` 10 (from
+         10 000);
+      5. the step-30 export through TTSSynthesizer(model_kind="forward")
+         and the bf16 vocoder: text -> wav for FT_TEXT, the launches read
+         around it (the sample loop once, nothing else), that sample-loop
+         call held against its plain version (phase 3's bar), the RTF.
+    The losses, durations and wav say nothing of quality (seeded mels).
+    Failed checks go to ``failures``; returns {"forward_train_serve":
+    read_launches()}."""
+    import contextlib
+    import io
+    import shutil
+    import statistics
+    import numpy as np
+    import torch
+    import yaml
+    from etts_torch import extract_durations, train_autoregressive
+    from etts_torch import train_forward
+    from etts_torch.align import normalized_durations
+    from etts_torch.api import TTSSynthesizer
+    from etts_torch.convert import export_flat
+    from etts_torch.data.dataset import (DataPrepper, Dataset,
+                                         ForwardDataPrepper, load_files)
+    from etts_torch.models.init import init_flax
+    from etts_torch.text import default_tokenizer
+    from etts_torch.train.state import TrainState
+    from etts_torch.train.steps import (make_autoregressive_val_step,
+                                        make_forward_train_step)
+    from etts_torch.utils.config import ConfigManager, build_forward
+    from etts_torch.utils.logging import read_scalars
+    build = ROOT / "build"
+    corpus = build / "phase9_corpus"
+    cdir, logs = build / "phase11_config", build / "phase11_logs"
+    for x in (cdir, logs, corpus / "forward_data"):
+        shutil.rmtree(x, ignore_errors=True)
+    lines = (corpus / "train_metafile.txt").read_text().splitlines(True)
+    (corpus / "test_metafile.txt").write_text("".join(lines[-FT_VAL:]))
+    cdir.mkdir(parents=True)
+    for kind, over in (
+            ("data", dict(train_data_directory=str(corpus),
+                          log_directory=str(logs))),
+            ("autoregressive", dict(reduction_factor_schedule=[[0, 1]],
+                                    use_mine=False,
+                                    weights_save_frequency=FT_AR_STEPS)),
+            ("forward", dict(prediction_frequency=10,
+                             weights_save_frequency=10))):
+        cfg = yaml.safe_load((CONFIG / f"{kind}_config.yaml").read_text())
+        cfg.update(over)
+        (cdir / f"{kind}_config.yaml").write_text(yaml.safe_dump(cfg))
+
+    def entry(main, *args):
+        return run_main(main, ["--config", str(cdir), *args])
+
+    # 1. the AR model to r = 1
+    secs, out, _ = entry(train_autoregressive.main, "--session_name",
+                         "phase11", "--max_steps", str(FT_AR_STEPS))
+    cm = ConfigManager(cdir, "autoregressive", "phase11")
+    ar_ms = read_scalars(cm.log_dir)["time/step_ms"]
+    say(cl, f"train_autoregressive at r = 1, {FT_AR_STEPS} steps: "
+            f"{secs:.1f} s, median {statistics.median(ar_ms.values()):.1f} "
+            f"ms/step (first {ar_ms[0]:.1f}); "
+            + " | ".join(out.strip().splitlines()[-2:]))
+
+    # 2. the durations, on the card, then card against CPU on a few rows
+    secs, out, _ = entry(extract_durations.main, "--session_name",
+                         "phase11")
+    n_utt, bad_sums = 0, []
+    for split, metafile in extract_durations.SPLITS:
+        want = len((corpus / metafile).read_text().splitlines())
+        files = sorted((corpus / "forward_data" / split).glob("*.npy"))
+        n_utt += len(files)
+        if len(files) != want:
+            failures.append(f"extract_durations: {len(files)} {split} "
+                            f"triples for {want} rows")
+        for f in files:
+            mel, ids, dur = np.load(f, allow_pickle=True)
+            if not (dur.sum() == mel.shape[0] and dur.shape == ids.shape
+                    and np.isfinite(mel).all()):
+                bad_sums.append(f.name)
+    if bad_sums:
+        failures.append(f"extract_durations: triples {bad_sums[:4]}")
+    say(cl, f"extract_durations on the card: {n_utt} utterances in "
+            f"{secs:.2f} s, {secs / max(n_utt, 1) * 1e3:.2f} ms an "
+            f"utterance (host clock, the checkpoint's load included); "
+            + " | ".join(ln for ln in out.splitlines() if "wrote" in ln)
+            + f"; every triple's durations sum to its frames: "
+            f"{not bad_sums}")
+    samples, _ = load_files(corpus / "train_metafile.txt", corpus / "mels",
+                            corpus / "spk_embeds")
+    host = Dataset(samples[:FT_CPU_ROWS],
+                   DataPrepper(cm.config, default_tokenizer(True)),
+                   FT_CPU_ROWS, shuffle=False,
+                   mel_channels=cm.config["mel_channels"]).next_batch()
+    got = {}
+    for where in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            model = cm.load_model(device=where)[0]
+        val_step = make_autoregressive_val_step(
+            model, stop_scaling=cm.config["stop_loss_scaling"])
+        got[where] = extract_durations.extract_batch(val_step, host, where)
+    (att_g, tri_g), (att_c, tri_c) = got["cuda"], got["cpu"]
+    d_att = float(np.abs(att_g - att_c).max())
+    mel_lens = (np.abs(host[0]).sum(-1) != 0).sum(-1)
+    phon_lens = (host[1] != 0).sum(-1)
+    off, ties = 0, True
+    for i in range(FT_CPU_ROWS):
+        k = np.nonzero(tri_g[i][2] != tri_c[i][2])[0]
+        norm = normalized_durations(att_c[i], int(mel_lens[i]),
+                                    int(phon_lens[i]), weighted=True)[k]
+        off += k.size
+        ties = ties and bool((np.abs(norm - np.floor(norm) - 0.5)
+                              <= FT_TIE).all())
+    say(cl, f"extraction, card vs CPU ({FT_CPU_ROWS} rows of "
+            f"{mel_lens.tolist()} frames, float32): last block's attention "
+            f"max |d| {d_att:.3e} (tol {FT_ATT_TOL}); durations differing "
+            f"at {off} tokens, each at a rounding tie (within {FT_TIE} of a "
+            f"half-integer): {ties}")
+    if not (d_att <= FT_ATT_TOL and ties):
+        failures.append("extraction, card vs CPU")
+
+    # 3. one forward train step, card against CPU, in float64 (the bars)
+    # and in float32 (phase 9's bars); the step's split
+    cmf = ConfigManager(cdir, "forward", "phase11")
+    cf = cmf.config
+    cap = int(cf["max_frames"])
+    vocab = default_tokenizer(False).vocab_size
+    files = sorted((corpus / "forward_data" / "train").glob("*.npy"))
+    fhost = Dataset(files[:FT_CPU_ROWS], ForwardDataPrepper(), FT_CPU_ROWS,
+                    shuffle=False, mel_channels=cf["mel_channels"],
+                    pad_mel_multiple=cap).next_batch()
+    runs = {}
+    for dt in (torch.float64, torch.float32):
+        for where in ("cpu", "cuda"):
+            model = build_forward(cf, vocab, dropout_rate=0.0)
+            init_flax(model, torch.Generator().manual_seed(
+                train_autoregressive.SEED)).to(where, dt)
+            state = grad_capture(model, cf["learning_rate_tts_schedule"])
+            mel, ids, dur = train_forward.to_device(fhost, where)
+            t0 = time.perf_counter()
+            met = make_forward_train_step(model, cap)(
+                state, (mel.to(dt), ids, dur.to(dt)), 0)
+            stats = {k: v.cpu() for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            runs[where, dt] = (float(met["loss"]), state.grads, stats,
+                               time.perf_counter() - t0)
+    n_params = sum(p.numel() for p in model.parameters())
+    exact = runs["cpu", torch.float64][1]
+    for dt, loss_tol, rtol, atol in (
+            (torch.float64, FT_LOSS_TOL, FT_GRAD_RTOL, FT_GRAD_ATOL),
+            (torch.float32, TRAIN_LOSS_TOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)):
+        (l_c, g_c, st_c, s_c), (l_g, g_g, st_g, s_g) = (runs["cpu", dt],
+                                                        runs["cuda", dt])
+        d_loss = abs(l_g - l_c) / abs(l_c)
+        worst = worst_grad(state.names, g_g, g_c, atol)
+        d_stats = max(float((st_g[k] - st_c[k]).abs().max()) for k in st_c)
+        line = (f"forward train step, card vs CPU ({dt}, TF32 off, "
+                f"{n_params} parameters, batch {fhost[0].shape}): loss "
+                f"{l_g:.7f} vs {l_c:.7f} (relative {d_loss:.2e}, tol "
+                f"{loss_tol}); worst gradient {worst[1]}: (|d| - {atol}) / "
+                f"|g| {worst[0]:.2e} (tol {rtol}); BatchNorm statistics max "
+                f"|d| {d_stats:.2e} (tol {FT_STATS_TOL}); first step "
+                f"{s_g:.3f} s on the card, {s_c:.3f} s on the CPU")
+        if dt == torch.float32:
+            # each side against the CPU's float64 step: the card's float32
+            # rounding beside the CPU's
+            line += "; worst against the CPU's float64 step: " + ", ".join(
+                "{} {:.2e}".format(w, worst_grad(
+                    state.names, [g.double() for g in runs[w, dt][1]], exact,
+                    atol)[0]) for w in ("cuda", "cpu"))
+        say(cl, line)
+        if not (d_loss <= loss_tol and worst[0] <= rtol
+                and d_stats <= FT_STATS_TOL):
+            failures.append(f"forward train step, card vs CPU ({dt})")
+    # the card's float32 step again, the attention's softmax in float64
+    # (models/layers.py::attention), against the CPU's float64 step: where
+    # the card's float32 gradients lose their digits (ROADMAP Queue C)
+    from etts_torch.models import layers
+
+    def softmax64(q, k, v, mask=None):
+        logits = q @ k.transpose(-1, -2) / (k.shape[-1] ** 0.5)
+        if mask is not None:
+            logits = logits + mask * -1e9
+        w = torch.softmax(logits.double(), dim=-1).float()
+        return w @ v, w
+    attention, layers.attention = layers.attention, softmax64
+    try:
+        model = build_forward(cf, vocab, dropout_rate=0.0)
+        init_flax(model, torch.Generator().manual_seed(
+            train_autoregressive.SEED)).to("cuda")
+        state = grad_capture(model, cf["learning_rate_tts_schedule"])
+        make_forward_train_step(model, cap)(
+            state, train_forward.to_device(fhost, "cuda"), 0)
+    finally:
+        layers.attention = attention
+    say(cl, "forward train step on the card, float32 but the attention's "
+            "softmax in float64: worst gradient against the CPU's float64 "
+            "step {:.2e} (not a check)".format(worst_grad(
+                state.names, [g.double() for g in state.grads], exact,
+                TRAIN_GRAD_ATOL)[0]))
+    model = build_forward(cf, vocab)
+    init_flax(model, torch.Generator().manual_seed(0)).to("cuda")
+    state = TrainState(model, cf["learning_rate_tts_schedule"])
+    fstep = make_forward_train_step(model, cap)
+    batch = train_forward.to_device(Dataset(
+        files, ForwardDataPrepper(), cf["tts_batch_size"], shuffle=False,
+        mel_channels=cf["mel_channels"], pad_mel_multiple=cap).next_batch(),
+        "cuda")
+    step_split(cl, "forward train step", state,
+               lambda: fstep(state, batch, 0))
+    del model, state, batch
+
+    # 4. the driver: a run, then resumed, against one uninterrupted run
+    outs, bases = [], {}
+    for steps, session in ((FT_STEPS[0], "phase11"), (FT_STEPS[1], "phase11"),
+                           (FT_STEPS[1], "phase11_once")):
+        secs, out, base = entry(train_forward.main, "--session_name", session,
+                                "--max_steps", str(steps))
+        bases.setdefault(steps - 1, base)
+        outs.append(out)
+        say(cl, f"train_forward --max_steps {steps} ({session}): "
+                f"{secs:.1f} s; " + " | ".join(out.strip().splitlines()[-3:]))
+    if f"restored weights at step {FT_STEPS[0]}" not in outs[1]:
+        failures.append(f"train_forward: no restore at step {FT_STEPS[0]}")
+    sc = read_scalars(cmf.log_dir)
+    span = range(5, FT_STEPS[0])
+    step_ms = [sc["time/step_ms"][i] for i in span]
+    frames = sum(sc["meta/target_frames"][i] for i in span)
+    peak = sc.get("meta/max_memory_allocated", {})
+    losses = sc["train/loss"]
+    say(cl, f"forward training, steps 5-{FT_STEPS[0]} (host clock, "
+            f"synchronised): median {statistics.median(step_ms):.2f} ms/step"
+            f" (min {min(step_ms):.2f}, max {max(step_ms):.2f}); "
+            f"{frames / sum(step_ms) * 1e3:.0f} target frames/s; "
+            f"peak memory of the run "
+            + ", ".join(f"{(v - bases[k]) / 2**30:.3f} GiB (run to {k + 1})"
+                        for k, v in sorted(peak.items()))
+            + f"; losses {dict(sorted(losses.items()))}; val loss "
+            f"{dict(sorted(sc.get('val/loss', {}).items()))}")
+    hist = sorted(p.name for p in cmf.log_dir.glob("val_durations_*.npy"))
+    if not (sorted(losses) == [0, 10, 19, 20, 29]
+            and all(math.isfinite(v) for v in losses.values())
+            and sorted(peak) == [n - 1 for n in FT_STEPS]
+            and sorted(sc.get("val/loss", {})) == [9, 19, 29]
+            and len(hist) == 3):
+        failures.append(f"forward training log: losses {losses}, peak "
+                        f"{sorted(peak)}, histograms {hist}")
+    once = ConfigManager(cdir, "forward", "phase11_once").weights_dir
+    is_stat = lambda k: k.endswith(("running_mean", "running_var"))
+
+    def apart(step):
+        """Weights and statistics at ``step`` of the two sessions: (bit
+        for bit equal, (largest difference of a weight, its name), (of a
+        statistic, its name), tensors that differ, tensors)."""
+        x, y = (torch.load(d / f"ckpt-{step}.pt", map_location="cpu",
+                           weights_only=True)["model"]
+                for d in (cmf.weights_dir, once))
+        gaps = {k: float((x[k].double() - y[k].double()).abs().max())
+                for k in x if x[k].is_floating_point()}
+        top = [max(((v, k) for k, v in gaps.items() if is_stat(k) == st),
+                   default=(0.0, "-")) for st in (False, True)]
+        return (all(torch.equal(x[k], y[k]) for k in x), *top,
+                sum(v > 0 for v in gaps.values()), len(gaps))
+
+    for step, what in ((FT_STEPS[0], "two uninterrupted runs"),
+                       (FT_STEPS[1], f"resumed at {FT_STEPS[0]} against "
+                                     "uninterrupted")):
+        same, w, st, n_diff, n = apart(step)
+        say(cl, f"forward training, {what}, step {step}: bit-equal {same}; "
+                f"largest difference of a weight {w[0]:.3e} ({w[1]}), of a "
+                f"BatchNorm statistic {st[0]:.3e} ({st[1]}); {n_diff} of {n} "
+                f"tensors differ")
+
+    # 5. the step-30 export, text -> wav through the sample loop
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, step, _ = cmf.load_model()
+    tts = TTSSynthesizer(cdir, export_flat(model), "cuda",
+                         phonemizer_backend="grapheme", model_kind="forward")
+    tts.predict(FT_TEXT)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mel = tts.predict(FT_TEXT)["mel"]
+    wav = voc.generate((mel + 4.0) / 8.0, seed=0)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    ran = read_launches()
+    hop = voc.model.hop_length
+    audio_s = wav.shape[0] / voc.config["sampling_rate"]
+    want = {k: 0 for k in ran} | {"wavernn_sample_loop": 1}
+    if ran != want:
+        failures.append(f"trained forward export launches {ran}, want "
+                        f"{want}")
+    if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+            and wav.shape[0] == (mel.shape[0] - 1) * hop):
+        failures.append("trained forward export wav")
+    say(cl, f"trained forward export (step {step}): {FT_TEXT!r} -> "
+            f"{mel.shape[0]} frames -> {wav.shape[0]} samples "
+            f"({audio_s:.3f} s) in {e2e:.3f} s, RTF {e2e / audio_s:.4f}; "
+            f"launches {ran}")
+    held(cl, voc.model, "the trained forward export's mel",
+         vocoder_cond(voc, mel), voc.weights, None, failures)
+    return {"forward_train_serve": ran}
 
 
 def _sync_ms(fn):
@@ -1529,6 +1936,7 @@ def main() -> int:
     max_steps = max_length // tts.r + 1
 
     # ---- 2. fused decode kernel vs plain ----
+    t_phase = time.perf_counter()
     m = tts.model
     with torch.no_grad():
         ids = torch.from_numpy(tts.encode_text(SENTENCE))[None].to(dev)
@@ -1601,6 +2009,9 @@ def main() -> int:
             failures.append(f"fused_decode vs plain ({label}; {blocks})")
         if run is dstep.fused_decode:
             dec_err = max(dec_err, err)
+
+    say(cl, f"phase 2 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # ---- 3. sample-loop kernel vs plain ----
     # conditioning: the 26k vocoder's upsample network on the reference
@@ -1702,6 +2113,9 @@ def main() -> int:
     if chunk_err != 0.0 or state_err != 0.0:
         failures.append("wavernn_sample_loop chunked state carry")
 
+    say(cl, f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # ---- 3b. int8 sample-loop kernels vs plain ----
     # the plain version of each mode repeats the TPU kernel's rounding (bf16
     # conditioning; bf16 activations, or activations quantized per row with
@@ -1778,6 +2192,9 @@ def main() -> int:
         if chunk_err != 0.0 or state_err != 0.0:
             failures.append(f"wavernn_sample_loop {wdt} chunked state carry")
 
+    say(cl, f"phase 3b took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # ---- 4. the main path ----
     zero_launches()
     torch.cuda.synchronize()
@@ -1803,6 +2220,9 @@ def main() -> int:
         raise RuntimeError("wav not finite or outside [-1, 1]")
     if not np.isfinite(mel).all():
         raise RuntimeError("mel not finite")
+
+    say(cl, f"phase 4 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # ---- 5. times and bounds at the main path's shapes ----
     # phase 2's decode weights are the main path's: same text, reference
@@ -1916,6 +2336,9 @@ def main() -> int:
     ref_s = wav_ref.shape[0] / tts.config["sampling_rate"]
     say(cl, f"reference mel of {ref_s:.1f} s of audio (float64 STFT): "
             f"{(time.perf_counter() - t0) / 10 * 1e3:.3f} ms")
+
+    say(cl, f"phase 5 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # ---- 6. the serving path ----
     sr, hop = tts.config["sampling_rate"], tts.config["hop_length"]
@@ -2032,6 +2455,9 @@ def main() -> int:
                                 "(serving shapes)")
         say(cl, line)
 
+    say(cl, f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # ---- 7. the streamed path, and Griffin-Lim ----
     t0 = time.perf_counter()
     paths |= stream_phase(cl, tts, voc, ref_mel, spk, mel, failures)
@@ -2052,6 +2478,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths |= tacotron_phase(cl, wav_ref, failures)
     say(cl, f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. the forward model's training, its export through B1 ----
+    t0 = time.perf_counter()
+    paths |= forward_train_phase(cl, voc, failures)
+    say(cl, f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "fused_decode", "route": "cuda",

@@ -1,6 +1,6 @@
 """The TTS input pipeline (own copy of ``etts/data/dataset.py``'s
-``load_files``, ``DataPrepper``, ``GTADataPrepper``, ``Dataset`` and
-``Prefetcher``; the port imports nothing of etts).
+``load_files``, ``DataPrepper``, ``GTADataPrepper``, ``ForwardDataPrepper``,
+``Dataset`` and ``Prefetcher``; the port imports nothing of etts).
 
 Batches are padded up to multiples (``pad_text_multiple`` 8,
 ``pad_mel_multiple`` 32) as etts pads them: the Keras-reduced loss divides
@@ -18,8 +18,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-__all__ = ["load_files", "DataPrepper", "GTADataPrepper", "Dataset",
-           "Prefetcher", "pad_to_multiple"]
+__all__ = ["load_files", "DataPrepper", "GTADataPrepper",
+           "ForwardDataPrepper", "Dataset", "Prefetcher", "pad_to_multiple"]
 
 
 def load_files(metafile, mel_dir, spk_embed_dir=None, num_samples=None):
@@ -100,6 +100,28 @@ class GTADataPrepper(DataPrepper):
         return norm_mel, tokens, stop, spk, norm_gta
 
 
+class ForwardDataPrepper:
+    """An npy triple (mel (t, n_mels), token ids, durations), as
+    ``extract_durations`` writes it, -> float32 mel, int32 ids, float32
+    durations (`etts/data/dataset.py:125-143`). A mel longer than
+    ``max_frames`` gives None, which the Dataset drops. The triples are
+    pickled object arrays: only files this pipeline wrote are read."""
+
+    def __init__(self, max_frames: Optional[int] = None):
+        self.max_frames = max_frames
+
+    @property
+    def may_drop(self):
+        return self.max_frames is not None
+
+    def __call__(self, sample):
+        mel, tokens, durations = np.load(str(sample), allow_pickle=True)
+        if self.max_frames is not None and mel.shape[0] > self.max_frames:
+            return None
+        return (np.asarray(mel, np.float32), np.asarray(tokens, np.int32),
+                np.asarray(durations, np.float32))
+
+
 def pad_to_multiple(n: int, m: Optional[int]) -> int:
     return ((n + m - 1) // m) * m if m else n
 
@@ -140,8 +162,14 @@ class Dataset:
         self.data_iter = self._infinite_iter()
 
     def _collate(self, items):
-        """(mel, tokens, stop, spk[, gta mel]) items -> padded arrays."""
+        """(mel, tokens, stop, spk[, gta mel]) items, or the forward
+        model's (mel, tokens, durations), -> padded arrays; durations pad
+        as the tokens do."""
         cols = list(zip(*items))
+        if len(cols) == 3:
+            return (_pad_batch(cols[0], self.pad_mel_multiple),
+                    _pad_batch(cols[1], self.pad_text_multiple),
+                    _pad_batch(cols[2], self.pad_text_multiple))
         batch = (_pad_batch(cols[0], self.pad_mel_multiple),
                  _pad_batch(cols[1], self.pad_text_multiple),
                  _pad_batch(cols[2], self.pad_mel_multiple),
@@ -244,6 +272,10 @@ class Dataset:
 
     def next_batch(self):
         return next(self.data_iter)
+
+    def all_batches(self):
+        """One pass over the samples, the stream left where it was."""
+        return self._one_epoch()
 
     def change_batches(self, batch_size: int):
         """Switch the batch size (the MINE batch-size schedule); the stream

@@ -9,6 +9,8 @@
     times 0.5;
   - Embed normal with variance 1 / width (flax's default);
   - the linear MINE critics (``init_std``): kernels and biases normal 0.05;
+  - the duration predictor's output bias ones (``bias_init=ones``,
+    `etts/models/layers.py:592`), so that its relu starts live;
   - other biases zero; norm scales 1, running means 0, running variances 1.
 """
 from __future__ import annotations
@@ -18,7 +20,7 @@ import math
 import torch
 import torch.nn as nn
 
-from .layers import ReferenceEncoderGST
+from .layers import DurationPredictor, ReferenceEncoderGST
 
 __all__ = ["init_flax"]
 
@@ -59,4 +61,8 @@ def init_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
         if normal_std is not None:
             for p in sub.parameters(recurse=False):
                 p.normal_(0.0, normal_std, generator=g)
+    # after the loop, which zeroes every plain bias; no draw is taken
+    for sub in module.modules():
+        if isinstance(sub, DurationPredictor):
+            sub.linear.bias.fill_(1.0)
     return module

@@ -35,11 +35,14 @@ _ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
 
 def variable_rate_dropout(x, rate: float, generator=None):
     """Inverted dropout that is always applied: keep where u < 1 - rate, u
-    drawn from ``generator``; rate 0 is the identity and draws nothing."""
+    drawn from ``generator`` on its own device (a CPU generator gives a
+    card's x the CPU's draws); rate 0 is the identity and draws nothing."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = torch.rand(x.shape, generator=generator,
+                   device=x.device if generator is None
+                   else generator.device).to(x.device)
     return torch.where(u < keep, x / max(keep, 1e-8), torch.zeros_like(x))
 
 
@@ -533,8 +536,8 @@ class DurationPredictor(nn.Module):
                                       normalization="layer")
         self.linear = nn.Linear(model_dim, 1)
 
-    def forward(self, x):
-        return torch.relu(self.linear(self.conv_blocks(x)))
+    def forward(self, x, train=False):
+        return torch.relu(self.linear(self.conv_blocks(x, train)))
 
 
 class ProsodyStatEncoder(nn.Module):

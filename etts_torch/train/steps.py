@@ -1,5 +1,9 @@
-"""Train and validation steps of the autoregressive model and the MINE
-zoo's updates (port of ``etts/train/steps.py:111-382``).
+"""Train and validation steps of the forward and autoregressive models
+and the MINE zoo's updates (port of ``etts/train/steps.py:50-382``).
+
+The forward step: the masked MAE of the mel and of the durations, weights
+3 and 1, the target durations regulating the lengths; no prenet dropout,
+as etts passes none.
 
 The joint TTS + MINE step, as the reference's `traning_steps.py`:
   - TTS loss = MAE(final) + stop cross-entropy (class 2 scaled by
@@ -29,6 +33,7 @@ from ..utils.losses import (l2_loss, masked_mean_absolute_error,
                             new_scaled_crossentropy, weighted_sum_losses)
 
 __all__ = ["fold_in", "generator", "frozen_batch_stats",
+           "make_forward_train_step", "make_forward_val_step",
            "make_autoregressive_train_step", "make_autoregressive_val_step",
            "make_mine_update", "make_mine_zoo_update"]
 
@@ -63,6 +68,51 @@ def _grads(loss, params):
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(params, grads)]
+
+
+def _forward_losses(model, batch, max_frames: int, train: bool, gen):
+    """(out, loss, [mel loss, duration loss]) of the forward model on
+    (mel, phonemes, durations)."""
+    mel, phonemes, durations = batch
+    durations = durations[..., None]
+    out = model(phonemes, durations, max_frames=max_frames, train=train,
+                generator=gen)
+    loss, vals = weighted_sum_losses(
+        (mel, durations), (out["mel"][:, :mel.shape[1]], out["duration"]),
+        (masked_mean_absolute_error, masked_mean_absolute_error), (3.0, 1.0))
+    return out, loss, vals
+
+
+def _forward_metrics(loss, vals) -> dict:
+    return {"loss": loss.detach(), "mel_loss": vals[0].detach(),
+            "duration_loss": vals[1].detach()}
+
+
+def make_forward_train_step(model, max_frames: int):
+    """``step(state, batch, rng) -> metrics``, one Adam update of ``state``
+    (a ``TrainState`` of the forward ``model``) on ``batch`` (mel,
+    phonemes, durations) on the model's device, dropout drawn from
+    ``generator(rng)`` (`etts/train/steps.py:50-86`). Metrics: {"loss",
+    "mel_loss", "duration_loss"}."""
+    def step(state, batch, rng: int):
+        _, loss, vals = _forward_losses(model, batch, max_frames, True,
+                                        generator(rng, batch[0].device))
+        state.apply_gradients(_grads(loss, state.params))
+        return _forward_metrics(loss, vals)
+
+    return step
+
+
+def make_forward_val_step(model, max_frames: int):
+    """``step(batch, rng) -> (metrics, out)``: the forward model with the
+    train flags off (`etts/train/steps.py:89-103`); ``out`` is its dict."""
+    @torch.no_grad()
+    def step(batch, rng: int):
+        out, loss, vals = _forward_losses(model, batch, max_frames, False,
+                                          generator(rng, batch[0].device))
+        return _forward_metrics(loss, vals), out
+
+    return step
 
 
 def _tts_losses(out, tar_real, tar_stop, mel_len, loss_fns):
@@ -185,7 +235,9 @@ def make_autoregressive_val_step(model, *, stop_scaling: float = 8.0):
     """``step(batch, rng, *, r=1) -> out``: the teacher-forced forward with
     the train flags off and prenet dropout 0.5, as etts fixes it
     (`etts/train/steps.py:281-309`); ``out`` is the model's dict plus
-    "tts_loss", "losses" and "reduced_target"."""
+    "tts_loss", "losses" and "reduced_target". The dropout's uniforms are
+    drawn on the CPU, so that the step is the same function of ``rng`` on
+    every device (duration extraction gives the card's durations)."""
     loss_fns = _loss_fns(stop_scaling)
 
     @torch.no_grad()
@@ -195,7 +247,8 @@ def make_autoregressive_val_step(model, *, stop_scaling: float = 8.0):
         tar_real, tar_mel, tar_stop, mel_len = model.input_reshape(mel, stop,
                                                                    r)
         out = model(phonemes, tar_mel, spk_in, False, False, False, r=r,
-                    prenet_dropout=0.5, generator=generator(rng, mel.device))
+                    prenet_dropout=0.5,
+                    generator=generator(rng, "cpu"))
         tts_loss, vals = _tts_losses(out, tar_real, tar_stop, mel_len,
                                      loss_fns)
         out.update({"tts_loss": tts_loss,

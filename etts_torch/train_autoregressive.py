@@ -115,6 +115,8 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on "
                            "the CPU")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     sync = ((lambda: torch.cuda.synchronize(device))
             if device.type == "cuda" else (lambda: None))
 

@@ -2,7 +2,8 @@
 the port's models: the counterpart of ``ConfigManager.get_model``
 (``etts/utils/config.py:145-305``) for the AR TTS, forward TTS, WaveRNN
 and GST-Tacotron families; and ``ConfigManager``'s session directories,
-which a training driver uses."""
+which a training driver uses, and the trained TTS model it saved there
+(``ConfigManager.load_model``)."""
 from __future__ import annotations
 
 import shutil
@@ -13,7 +14,8 @@ from typing import Optional
 import numpy as np
 import yaml
 
-from ..text import Pipeline
+from ..text import Pipeline, default_tokenizer
+from .checkpoints import CheckpointManager
 
 __all__ = ["load_config", "text_pipeline", "build_tts", "build_forward",
            "build_vocoder", "build_tacotron", "schedule_values", "step_schedule",
@@ -96,6 +98,28 @@ class ConfigManager:
             yaml.safe_dump(self.model_config, f)
         with open(self.base_dir / "data_config.yaml", "w") as f:
             yaml.safe_dump(self.data_config, f)
+
+    def load_model(self, step: Optional[int] = None, device="cpu"):
+        """The session's TTS model (``model_kind`` "autoregressive" or
+        "forward") with the weights and BatchNorm statistics of
+        ``weights_dir/ckpt-{step}.pt`` (the latest where ``step`` is None),
+        as the training drivers save them, on ``device``; the counterpart
+        of etts' ``ConfigManager.load_model``. Returns (model, step, the
+        schedule values at that step: ``schedule_values``). Where the
+        session has no checkpoint this raises, where etts warns and hands
+        back a fresh init."""
+        tree, step = CheckpointManager(self.weights_dir).restore(
+            step, map_location="cpu")
+        if tree is None:
+            raise FileNotFoundError(f"no checkpoint in {self.weights_dir}")
+        build = {"autoregressive": build_tts,
+                 "forward": build_forward}[self.model_kind]
+        model = build(self.config, default_tokenizer(
+            self.model_kind == "autoregressive").vocab_size)
+        model.load_state_dict(tree["model"])
+        print(f"restored weights from {self.weights_dir} at step {step}")
+        return (model.to(device).eval(), step,
+                schedule_values(self.config, step))
 
     def create_remove_dirs(self, clear_dir=False, force=False):
         """Make the session's directories; with ``clear_dir`` delete its
@@ -218,9 +242,11 @@ def _conv_blocks(c: dict) -> dict:
         "encoder_attention_conv_kernel", "decoder_attention_conv_kernel")}
 
 
-def build_forward(config: dict, vocab_size: int):
+def build_forward(config: dict, vocab_size: int, dropout_rate: float = 0.1):
     """The forward (duration) model of ``forward_config.yaml``
-    (``etts/utils/config.py:194-215``)."""
+    (``etts/utils/config.py:194-215``). As etts, it does not read the
+    config's ``dropout_rate``: the model's dropout is etts' default 0.1
+    unless the caller passes another."""
     from ..models.forward import ForwardTransformer
     c = config
     return ForwardTransformer(
@@ -238,7 +264,7 @@ def build_forward(config: dict, vocab_size: int):
         postnet_conv_filters=c["postnet_conv_filters"],
         postnet_conv_layers=c["postnet_conv_layers"],
         postnet_kernel_size=c["postnet_kernel_size"],
-        **_conv_blocks(c), vocab_size=vocab_size)
+        **_conv_blocks(c), vocab_size=vocab_size, dropout_rate=dropout_rate)
 
 
 def build_vocoder(config: dict):

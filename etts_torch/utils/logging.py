@@ -3,7 +3,8 @@
 (`etts/utils/logging.py:75-90`). The scalars go under etts' tags
 (``train/loss``, ``meta/reduction_factor``, ``mi/MINE_0`` ...) as JSON
 lines, ``{"tag", "value", "step"}``, in ``log_dir/scalars.jsonl``; a
-predicted mel goes to ``log_dir`` as ``.npy``. No TensorBoard writer: the
+predicted mel, and the values of a histogram, go to ``log_dir`` as
+``.npy``. No TensorBoard writer: the
 card's machine has none."""
 from __future__ import annotations
 
@@ -52,11 +53,21 @@ class ScalarLog:
             f.write(json.dumps({"tag": tag, "value": float(value),
                                 "step": int(step)}) + "\n")
 
+    def _save(self, values, tag: str, step: int) -> Path:
+        path = self.log_dir / f"{tag.replace('/', '_')}_{step}.npy"
+        np.save(path, np.asarray(values, np.float32))
+        return path
+
     def save_mel(self, mel, tag: str, step: int) -> Path:
         """The mel (t, n_mels) as ``{tag with / as _}_{step}.npy``."""
-        path = self.log_dir / f"{tag.replace('/', '_')}_{step}.npy"
-        np.save(path, np.asarray(mel, np.float32))
-        return path
+        return self._save(mel, tag, step)
+
+    def add_histogram(self, tag: str, values, step: int) -> Path:
+        """The values whose histogram etts' ``SummaryManager`` writes
+        (`etts/utils/logging.py:111-115`), kept whole as
+        ``{tag with / as _}_{step}.npy``: any histogram can be drawn from
+        them."""
+        return self._save(values, tag, step)
 
 
 def read_scalars(log_dir) -> dict:

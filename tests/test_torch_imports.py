@@ -39,4 +39,6 @@ def test_port_imports_no_jax_flax_or_etts():
             "etts_torch.train_autoregressive", "etts_torch.models.tacotron",
             "etts_torch.eval_tacotron", "etts_torch.text.keithito",
             "etts_torch.text.cmudict", "etts_torch.data.taco_audio",
-            "etts_torch.utils.precision"} <= set(modules)
+            "etts_torch.utils.precision", "etts_torch.align",
+            "etts_torch.align.durations", "etts_torch.extract_durations",
+            "etts_torch.train_forward"} <= set(modules)

@@ -7,8 +7,8 @@ import pytest
 import torch
 import yaml
 
-from etts_torch import (api, eval_tacotron, synthesize, time_decode,
-                        train_autoregressive)
+from etts_torch import (api, eval_tacotron, extract_durations, synthesize,
+                        time_decode, train_autoregressive, train_forward)
 from etts_torch.convert import seeded_flat
 from etts_torch.utils.config import (build_tacotron, build_vocoder,
                                      load_config)
@@ -78,13 +78,26 @@ def _entry(name, d, tmp):
              "--max_steps", "1"]),
         # no card here: main pins the precision, then returns 2
         "time_decode.main": lambda: time_decode.main([]),
+        # these pin it, then find no checkpoint and no training triples
+        "extract_durations.main": _raises(FileNotFoundError, lambda: (
+            extract_durations.main(["--config", str(d / "train"), "--device",
+                                    "cpu", "--session_name", "untrained"]))),
+        "train_forward.main": _raises(ValueError, lambda: train_forward.main(
+            ["--config", cfg, "--device", "cpu", "--max_steps", "1"])),
     }[name]
+
+
+def _raises(exc, fn):
+    def run():
+        with pytest.raises(exc):
+            fn()
+    return run
 
 
 @pytest.mark.parametrize("name", [
     "TTSSynthesizer", "VocoderSynthesizer", "TacotronSynthesizer",
     "synthesize.main", "eval_tacotron.main", "train_autoregressive.main",
-    "time_decode.main"])
+    "time_decode.main", "extract_durations.main", "train_forward.main"])
 def test_entry_point_turns_tf32_off(name, workspace, tf32_on, tmp_path):
     _entry(name, workspace["dir"], tmp_path)()
     assert torch.backends.cuda.matmul.allow_tf32 is False

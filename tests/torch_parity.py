@@ -275,9 +275,17 @@ def train_pair(system_type="speaker_style_text", seed=0, **over):
     from etts_torch.convert import export_flat
     from etts_torch.models.autoregressive import (
         AutoregressiveTransformer as TM)
-    from etts_torch.models.init import init_flax
     cfg = dict(AR_TINY, **over)
     tm = TM(system_type=system_type, speaker_embed_dim=SPK_DIM, **cfg)
+    _seeded_init(tm, seed)
+    return (JM(system_type=system_type, **cfg), unflatten(export_flat(tm)),
+            tm.eval())
+
+
+def _seeded_init(tm, seed):
+    """``init_flax`` from ``seed``, then the BatchNorm statistics seeded
+    (means normal 0.1, variances in [0.5, 1.5])."""
+    from etts_torch.models.init import init_flax
     g = torch.Generator().manual_seed(seed)
     init_flax(tm, g)
     with torch.no_grad():
@@ -286,8 +294,51 @@ def train_pair(system_type="speaker_style_text", seed=0, **over):
                 b.normal_(0.0, 0.1, generator=g)
             elif name.endswith("running_var"):
                 b.uniform_(0.5, 1.5, generator=g)
-    return (JM(system_type=system_type, **cfg), unflatten(export_flat(tm)),
-            tm.eval())
+
+
+# the forward model: a 1 dense + 1 conv encoder, a 2 dense + 1 conv decoder
+FWD_TINY = dict(encoder_model_dimension=32, decoder_model_dimension=32,
+                encoder_num_heads=(2, 2), decoder_num_heads=(2, 2, 2),
+                encoder_dense_blocks=1, decoder_dense_blocks=2,
+                encoder_feed_forward_dimension=48,
+                decoder_feed_forward_dimension=40, postnet_conv_filters=16,
+                postnet_conv_layers=3, postnet_kernel_size=3, mel_channels=12,
+                vocab_size=40, encoder_attention_conv_filters=24,
+                decoder_attention_conv_filters=20,
+                encoder_maximum_position_encoding=100,
+                decoder_maximum_position_encoding=200)
+
+
+def forward_train_pair(seed=0, dropout_rate=0.0):
+    """(flax ForwardTransformer, variables, torch model) of FWD_TINY at
+    ``dropout_rate``, as ``train_pair``: the port model initialised by
+    ``init_flax`` and its BatchNorm statistics seeded, handed to flax
+    through the flat layout."""
+    from etts.models.forward import ForwardTransformer as JF
+    from etts_torch.convert import export_flat
+    from etts_torch.models.forward import ForwardTransformer as TF
+    tm = TF(**FWD_TINY, dropout_rate=dropout_rate)
+    _seeded_init(tm, seed)
+    return (JF(**FWD_TINY, dropout_rate=dropout_rate),
+            unflatten(export_flat(tm)), tm.eval())
+
+
+def forward_train_batch(seed=0, b=3, n=9, max_frames=48, mel_c=12):
+    """A batch as etts' ForwardDataPrepper and Dataset make it: ids and
+    integer durations (0-5 frames, some 0) zero-padded to ``n``, each
+    mel as long as its durations' sum, zero-padded to ``max_frames``.
+    Returns numpy (mel, phonemes, durations)."""
+    rng = np.random.default_rng(seed)
+    mel = np.zeros((b, max_frames, mel_c), np.float32)
+    phon = np.zeros((b, n), np.int32)
+    dur = np.zeros((b, n), np.float32)
+    for i in range(b):
+        k = n if i == 0 else int(rng.integers(n // 2, n))
+        phon[i, :k] = rng.integers(1, FWD_TINY["vocab_size"], k)
+        dur[i, :k] = rng.integers(0, 6, k)
+        t = int(dur[i].sum())
+        mel[i, :t] = rng.normal(0, 1, (t, mel_c))
+    return mel, phon, dur
 
 
 def capture_tx():
@@ -456,14 +507,15 @@ def step_pair(pair, batch, *, r, mi=0.0, ss_rate=0.0, jax_mi=None,
 def assert_step_close(j, p, rtol=1e-4, atol=1e-7, metric_atol=1e-7):
     """The port's step against etts': every gradient (``assert_grads_close``
     at ``rtol`` / ``atol``), the BatchNorm statistics after it within 1e-6,
-    and every metric within 1e-5 relative (``metric_atol`` absolute)."""
+    and every metric (those under "losses" too) within 1e-5 relative
+    (``metric_atol`` absolute)."""
     (jst, jmet), (cs, tmet, got) = j, p
     assert_grads_close(torch_grads(jst.opt_state), cs.grads, rtol, atol)
     want = flatten({"params": jst.params, "batch_stats": jst.batch_stats})
     for k in (k for k in want if k.startswith("batch_stats")):
         np.testing.assert_allclose(got[k], want[k], atol=1e-6, err_msg=k)
-    flat = lambda m: {**{k: m[k] for k in ("loss", "tts_loss", "style_loss",
-                                           "mi_live")}, **m["losses"]}
+    flat = lambda m: {**{k: v for k, v in m.items() if k != "losses"},
+                      **m.get("losses", {})}
     for k, w in flat(jmet).items():
         np.testing.assert_allclose(float(flat(tmet)[k]), float(w),
                                    rtol=1e-5, atol=metric_atol, err_msg=k)
