@@ -108,7 +108,24 @@ Phases (any failure exits non-zero and prints no result line):
      the step-30 export
      through TTSSynthesizer(model_kind="forward") and the bf16 sample
      loop (launches read around it, the call held against its plain
-     version); times, peak memory and the real-time factor.
+     version); times, peak memory and the real-time factor;
+  12. the vocoder's training flow (vocoder_train_phase): seeded wavs
+     through ``python -m etts_torch.preprocess_wavernn``; one WaveRNN
+     train step card against CPU in MOL and RAW (float64 at the FT_*
+     bars; float32 the loss) and its split; the float32 step at batch 64
+     against the card's float64 step on the card and the CPU, two crop
+     draws, its TF32 control rejected;
+     ``python -m etts_torch.train_wavernn`` at configs/default's full
+     width and batch 64 for 20 steps, resumed to 30 (the batches against
+     the permutation stream); the last export, with its BatchNorm
+     statistics, through VocoderSynthesizer and B1 (one launch; the
+     share of saturated samples beside the 26k export's; B1 one step at
+     a time against exact sums, its float32-activation control
+     rejected);
+     ``gen_wavernn``; ``make_gta`` on phase 11's r = 1 session (card
+     against CPU) and ``train_wavernn --gta``; two runs under
+     deterministic algorithms in processes of their own, held bit for
+     bit.
 
 The port computes in float32 without TF32 (``utils/precision.py``), as
 every entry point sets it.
@@ -244,6 +261,40 @@ FT_GRAD_ATOL = 1e-7
 FT_STATS_TOL = 1e-6
 FT_STEPS = (20, 30)
 FT_TEXT = "Hello there."
+# phase 12: the vocoder's training flow. VT_UTTS seeded wavs of
+# VT_SECONDS (a batch of voc_batch_size 64 crops takes one crop of each of
+# 64 training utterances, and voc_test_samples are held out); the card's
+# train step against the CPU's on VT_CPU_ROWS crops; the driver's steps (a
+# run, then resumed) and its checkpoint cadence; make_gta card against CPU
+# on VT_CPU_ROWS rows within VT_GTA_TOL (max |d| of the [0, 1] mels); the
+# GTA run's steps and batch; the deterministic runs' steps
+VT_UTTS = 72
+VT_SECONDS = (1.0, 3.0)
+VT_CPU_ROWS = 2
+VT_STEPS = (20, 30)
+VT_CKPT = 10
+VT_GTA_TOL = 1e-5
+VT_GTA_STEPS = 5
+VT_GTA_BATCH = 16
+VT_DET_STEPS = 20
+# the trained export's one-step check (one_step_check in MOL on the
+# conditioning of its test utterances): steps, the bar of the kernel's
+# state and the margin of its share of samples within STEP_TOL of the
+# exact sums' below the float32 plain version's. On the H100 (the step-30
+# export, 13 rows, 1000 steps) the state read 5.406e-3 in the kernel and
+# in the float32 plain version alike (a turned rounding, on conditioning
+# that reaches |x| 38), the control 4.088e-2; the samples 0.981769
+# (kernel), 0.990615 (plain), 0.352308 (control): the mma's float32 sums
+# turn a rounding more often than the plain version's, the bf16 rounding
+# left out moves most samples
+VT_ONE_STEP = 1000
+STATE_TOL_TRAINED = 1.5e-2
+SAMPLE_MARGIN_TRAINED = 0.03
+# the float32 step at the driver's batch (64 crops, MOL) against the
+# card's float64 step, on two crop draws, the card's and the CPU's: the
+# worst gradient's ||d|| / ||g|| (TRAIN_GRAD_ATOL) within VT_F32_GRAD,
+# and the card's step with TF32 on (the control) past it
+VT_F32_GRAD = 2e-2
 
 
 def card() -> str:
@@ -452,37 +503,49 @@ def dequantized(w8):
     return SampleLoopWeights(**kw)
 
 
+def f32_activations(w):
+    """``w`` with float32 matrices: the bf16 kernel's function with the
+    activations left in float32 (no bf16 rounding before a product, no
+    bf16 stream), the control of its one-step check."""
+    from etts_torch.ops.kernels.wavernn_cell import MATRICES
+    return dataclasses.replace(w, **{k: getattr(w, k).float()
+                                     for k in MATRICES})
+
+
 def one_step_check(cl, name, wk, control, exact_fn, weight_dtype, cond_all,
-                   all_b, d, state_tol, peaky_margin, failures, n_steps=200):
-    """One step at a time from the same state on peaky RAW (512 classes):
-    the kernel run one step a call (exact, as the chunked check shows) and
-    the plain versions started from the kernel's state each step, so what
-    differs is the step itself. Each is read against exact_fn(cond), the
-    plain step with exact (float64) sums and the same roundings, which
-    neither float32 sum order is nearer to by construction: the float32
-    state the kernel's step leaves (h1, h2) must be within state_tol of it.
-    The sample is an argmax, and one float32 sum ending an ulp apart can
-    turn a bf16 rounding of an activation, which now and then moves the
-    last hidden layer by more than the gap between the two largest of 512
-    logits, in either float32 version; the kernel's share of picks equal to
-    the exact sums' must be no worse than the float32 plain version's by
-    more than peaky_margin, over all B. ``control`` (the activations left
-    in float32) is run in the plain version's place beside it: both bars
-    must reject it."""
+                   all_b, state_tol, margin, failures, n_steps=200,
+                   mode="RAW", n_classes=512, seed=50):
+    """One step at a time from the same state: the kernel run one step a
+    call (exact, as the chunked check shows) and the plain versions
+    started from the kernel's state each step, so what differs is the step
+    itself. Each is read against exact_fn(cond), the plain step with exact
+    (float64) sums and the same roundings, which neither float32 sum order
+    is nearer to by construction: the float32 state the kernel's step
+    leaves (h1, h2) must be within state_tol of it. A float32 sum ending
+    an ulp apart now and then turns a bf16 rounding of an activation,
+    which moves the sample (a peaky RAW argmax over 512 logits, or a MOL
+    mixture pick and its logistic) in either float32 version; the
+    kernel's share of samples within STEP_TOL of the exact sums' must be
+    no worse than the float32 plain version's by more than ``margin``,
+    over all B. ``control`` (the activations left in float32) is run in
+    the plain version's place beside it: both bars must reject it."""
     import torch
     from etts_torch.ops.kernels import wavernn_cell as wcell
     dev = cond_all.device
-    label = name
-    pooled = {"kernel": 0, "plain": 0, "control": 0}
+    names = ("kernel", "plain", "control")
+    pooled = dict.fromkeys(names, 0)
     control_dh = 0.0
     for B in all_b:
         cond = cond_all[:n_steps, :B].contiguous()
-        g = torch.Generator(dev).manual_seed(50 + B)
-        u = torch.rand(n_steps, B, 512, device=dev, generator=g)
-        kw = dict(mode="RAW", n_classes=512)
-        st = wcell.init_state(B, d, dev)
-        equal = {"kernel": 0, "plain": 0, "control": 0, "kernel-plain": 0}
-        dh = {"kernel": 0.0, "plain": 0.0, "control": 0.0}
+        g = torch.Generator(dev).manual_seed(seed + B)
+        u = torch.rand(n_steps, B, wcell.n_draw(mode, n_classes, wk.n_out),
+                       device=dev, generator=g)
+        kw = dict(mode=mode, n_classes=n_classes)
+        exact = exact_fn(cond)
+        st = wcell.init_state(B, wk.d, dev)
+        near = {nm: torch.zeros((), device=dev) for nm in names}
+        dh = {nm: torch.zeros((), device=dev) for nm in names}
+        mean_dh = {nm: torch.zeros((), device=dev) for nm in names}
         for t in range(n_steps):
             c_t, u_t = cond[t:t + 1], u[t:t + 1]
             k, st_k = wcell.wavernn_sample_loop(c_t, wk, noise=u_t, state=st,
@@ -494,45 +557,47 @@ def one_step_check(cl, name, wk, control, exact_fn, weight_dtype, cond_all,
                 o, st_o = wcell.wavernn_sample_loop_plain(
                     c_t, w_, noise=u_t, state=st, weight_dtype=wdt, **kw)
                 got[nm] = (o[0], st_o)
-            logits, h1_r, h2_r = exact_fn(c_t)(
-                0, st["x"].double(), st["h1"].double(), st["h2"].double())
-            r = wcell._sample(logits, u_t[0], "RAW", 512)
+            logits, h1_r, h2_r = exact(t, st["x"].double(), st["h1"].double(),
+                                       st["h2"].double())
+            r = wcell._sample(logits, u_t[0], mode, n_classes)
             for nm, (o, st_o) in got.items():
-                equal[nm] += int((o == r).sum())
-                dh[nm] = max(dh[nm],
-                             float((st_o["h1"] - h1_r).abs().max()),
-                             float((st_o["h2"] - h2_r).abs().max()))
-            equal["kernel-plain"] += int((k[0] == got["plain"][0]).sum())
+                near[nm] += ((o - r).abs() <= STEP_TOL).sum()
+                d_h = torch.maximum((st_o["h1"] - h1_r).abs(),
+                                    (st_o["h2"] - h2_r).abs())
+                dh[nm] = torch.maximum(dh[nm], d_h.max())
+                mean_dh[nm] += d_h.mean() / n_steps
             st = st_k
-        for nm in pooled:
-            pooled[nm] += equal[nm]
+        near = {nm: int(v) for nm, v in near.items()}
+        dh = {nm: float(v) for nm, v in dh.items()}
+        for nm in names:
+            pooled[nm] += near[nm]
         control_dh = max(control_dh, dh["control"])
-        share = {k_: v / (n_steps * B) for k_, v in equal.items()}
-        say(cl, f"wavernn_sample_loop {label}, one step from the same state "
-                f"(seeded random weights, peaky RAW 512 classes), B={B}, "
-                f"{n_steps} steps ({-(-B // wcell.TILE_ROWS)} blocks of "
-                f"{wcell.TILE_ROWS} rows), against exact sums: h1, h2 max |d| "
-                f"kernel {dh['kernel']:.3e} (tol {state_tol}), plain "
-                f"{dh['plain']:.3e}, control {dh['control']:.3e}; share of "
-                f"picks equal: kernel {share['kernel']:.6f}, plain "
-                f"{share['plain']:.6f}, control {share['control']:.6f}; "
-                f"kernel to plain {share['kernel-plain']:.6f}")
+        say(cl, f"wavernn_sample_loop {name}, one step from the same state "
+                f"({mode}), B={B}, {n_steps} steps "
+                f"({-(-B // wcell.TILE_ROWS)} blocks of {wcell.TILE_ROWS} "
+                f"rows), against exact sums: h1, h2 max |d| kernel "
+                f"{dh['kernel']:.3e} (tol {state_tol}), plain "
+                f"{dh['plain']:.3e}, control {dh['control']:.3e}; mean |d| "
+                + ", ".join(f"{nm} {float(mean_dh[nm]):.3e}" for nm in names)
+                + f"; share of samples within {STEP_TOL}: "
+                + ", ".join(f"{nm} {near[nm] / (n_steps * B):.6f}"
+                            for nm in names))
         if not dh["kernel"] <= state_tol:
-            failures.append(f"wavernn_sample_loop {label} one step, same "
+            failures.append(f"wavernn_sample_loop {name} one step, same "
                             f"state (B={B})")
-    n_picks = n_steps * sum(all_b)
-    share = {k_: v / n_picks for k_, v in pooled.items()}
-    say(cl, f"wavernn_sample_loop {label} peaky RAW, {n_picks} picks one "
-            f"step from the same state: equal to exact sums' kernel "
-            f"{share['kernel']:.6f}, plain {share['plain']:.6f} (bar "
-            f"{share['plain'] - peaky_margin:.6f} = plain - {peaky_margin}), "
-            f"control {share['control']:.6f}, control state max |d| "
+    n = n_steps * sum(all_b)
+    share = {nm: v / n for nm, v in pooled.items()}
+    say(cl, f"wavernn_sample_loop {name} ({mode}), {n} samples one step "
+            f"from the same state: within {STEP_TOL} of the exact sums' "
+            f"kernel {share['kernel']:.6f}, plain {share['plain']:.6f} (bar "
+            f"{share['plain'] - margin:.6f} = plain - {margin}), control "
+            f"{share['control']:.6f}, control state max |d| "
             f"{control_dh:.3e}")
-    if share["kernel"] < share["plain"] - peaky_margin:
-        failures.append(f"wavernn_sample_loop {label} peaky RAW picks")
-    if (share["control"] >= share["plain"] - peaky_margin
+    if share["kernel"] < share["plain"] - margin:
+        failures.append(f"wavernn_sample_loop {name} one-step samples")
+    if (share["control"] >= share["plain"] - margin
             or control_dh <= state_tol):
-        failures.append(f"the float32-activation control of {label} clears "
+        failures.append(f"the float32-activation control of {name} clears "
                         "a one-step bar")
 
 
@@ -1015,12 +1080,13 @@ def write_corpus(d: Path, n: int, seed: int = 0):
     (d / "train_metafile.txt").write_text("".join(lines))
 
 
-def step_split(cl, label, state, run, reps=5):
+def step_split(cl, label, state, run, reps=5, prof_steps=3):
     """Where a train step's time goes, on the card: ``reps`` calls of
     ``run``, one Adam step of the ``TrainState`` ``state`` each (after 2
     warm-up steps), each split by the host clock, synchronised, into the
     gradient (``torch.autograd.grad``), the Adam update and the rest (the
-    forward pass and the losses); then 3 steps under ``torch.profiler``:
+    forward pass and the losses); then ``prof_steps`` steps under
+    ``torch.profiler``:
     the device's busy time (the sum of the kernels' times) over the
     profiled and over the unprofiled step, the kernels a step, and the five
     kernels that take the most device time. Returns the split's medians
@@ -1069,29 +1135,32 @@ def step_split(cl, label, state, run, reps=5):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
+        for _ in range(prof_steps):
             run()
         sync()
-    wall = (time.perf_counter() - t0) / 3 * 1e3
+    wall = (time.perf_counter() - t0) / prof_steps * 1e3
     # device-side events, not the annotation ranges the profiler also
     # puts on the device's timeline (``Optimizer.step#Adam.step``)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and "#" not in e.name]
-    busy = sum(e.device_time for e in kernels) / 3 / 1e3
+    busy = sum(e.device_time for e in kernels) / prof_steps / 1e3
     if not kernels:
         say(cl, f"{label} under torch.profiler: no device time recorded "
                 "(device busy share not measured)")
         return split_ms
     by_name = {}
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 3 / 1e3
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.device_time / prof_steps / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    say(cl, f"{label} under torch.profiler (3 steps): {wall:.2f} ms/step "
+    say(cl, f"{label} under torch.profiler ({prof_steps} steps): "
+            f"{wall:.2f} ms/step "
             f"wall, device busy {busy:.2f} ms/step ({busy / wall:.1%} of it, "
             f"{busy / med[0]:.1%} of the unprofiled step), "
-            f"{len(kernels) / 3:.0f} kernels a step; most device time: "
+            f"{len(kernels) / prof_steps:.0f} kernels a step; most device "
+            "time: "
             + "; ".join(f"{n[:60]} {t:.2f} ms" for n, t in top))
     return split_ms
 
@@ -1643,6 +1712,555 @@ def forward_train_phase(cl, voc, failures):
     return {"forward_train_serve": ran}
 
 
+def _vocoder_step_check(cl, cdir, store, failures):
+    """One vocoder train step, card against CPU on VT_CPU_ROWS crops from
+    the same init (``init_flax``, seed 0), in MOL (the config's mode) and
+    RAW (512 classes, the labels the mu-law of the same crops): in float64
+    at the FT_* bars (the loss, each gradient, the BatchNorm statistics
+    after the step within FT_STATS_TOL of their largest |value|); in
+    float32 the loss at TRAIN_LOSS_TOL, the gradients printed beside each
+    side's distance from the CPU's float64 step (at VT_CPU_ROWS rows the
+    BatchNorms normalise 10 positions a channel and float32 leaves 2-5e-2
+    of the gradients on either device). Then at the driver's batch (64
+    crops, MOL), on two crop draws, the card's and the CPU's float32
+    steps against the card's float64 step within VT_F32_GRAD, and the
+    card's step with TF32 on past it: the MelResNet's BatchNorm biases,
+    whose gradients nearly cancel, keep 2-3 digits in float32, on either
+    device by turns."""
+    import numpy as np
+    import torch
+    from etts_torch.data.dataset import VocoderDataset, collate_vocoder
+    from etts_torch.models.init import init_flax
+    from etts_torch.ops.normalizers import mu_law_encode
+    from etts_torch.train.steps import make_wavernn_train_step
+    from etts_torch.train_wavernn import INIT_SEED, to_device, vocoder_ids
+    from etts_torch.utils.config import build_vocoder, load_config
+    from etts_torch.utils.precision import pin_float32
+    c = load_config(cdir, "wavernn")
+    ids = vocoder_ids(store, c, False)
+
+    def crops(rows, seed=0):
+        ds = VocoderDataset(ids[:rows], store)
+        return collate_vocoder([ds[i] for i in range(rows)],
+                               c["voc_seq_len_hops"] * c["hop_length"],
+                               c["hop_length"], c["voc_pad"],
+                               mode=c["voc_mode"], bits=c["bits"],
+                               rng=np.random.default_rng(seed))
+
+    def step(mode, dt, where, batch, tf32=False):
+        """(loss, gradients, statistics, seconds, parameter names); with
+        ``tf32`` the card's matmuls and convolutions in TF32."""
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            return _step(mode, dt, where, batch)
+        finally:
+            pin_float32()
+
+    def _step(mode, dt, where, batch):
+        model = build_vocoder(dict(c, voc_mode=mode))
+        init_flax(model, torch.Generator().manual_seed(INIT_SEED)).to(
+            where, dt)
+        state = grad_capture(model, [[0, 1e-4]])
+        x, y, mels = to_device(batch, where)
+        y = (mu_law_encode(y, 2 ** c["bits"]).long() if mode == "RAW"
+             else y.to(dt))
+        t0 = time.perf_counter()
+        met = make_wavernn_train_step(model)(state,
+                                             (x.to(dt), y, mels.to(dt)))
+        stats = {k: v.cpu() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return (float(met["loss"]), [g.double() for g in state.grads],
+                stats, time.perf_counter() - t0, state.names)
+
+    host = crops(VT_CPU_ROWS)
+    for mode in ("MOL", "RAW"):
+        runs = {(w, dt): step(mode, dt, w, host)
+                for dt in (torch.float64, torch.float32)
+                for w in ("cpu", "cuda")}
+        names = runs["cpu", torch.float64][4]
+        for dt in (torch.float64, torch.float32):
+            (l_c, g_c, st_c, s_c, _), (l_g, g_g, st_g, s_g, _) = (
+                runs["cpu", dt], runs["cuda", dt])
+            d_loss = abs(l_g - l_c) / abs(l_c)
+            f64 = dt == torch.float64
+            atol = FT_GRAD_ATOL if f64 else TRAIN_GRAD_ATOL
+            worst = worst_grad(names, g_g, g_c, atol)
+            d_stats = max(float((st_g[k] - st_c[k]).abs().max())
+                          / float(st_c[k].abs().max()) for k in st_c)
+            line = (f"vocoder train step, card vs CPU ({mode}, {dt}, TF32 "
+                    f"off, x {tuple(host[0].shape)}, mels "
+                    f"{tuple(host[2].shape)}): loss {l_g:.7f} vs {l_c:.7f} "
+                    f"(relative {d_loss:.2e}, tol "
+                    f"{FT_LOSS_TOL if f64 else TRAIN_LOSS_TOL}); worst "
+                    f"gradient {worst[1]}: (|d| - {atol}) / |g| "
+                    f"{worst[0]:.2e} (tol {FT_GRAD_RTOL if f64 else 'none'})"
+                    f"; BatchNorm statistics max |d| / max |stat| "
+                    f"{d_stats:.2e} (tol {FT_STATS_TOL if f64 else 'none'})"
+                    f"; first step {s_g:.3f} s on the card, {s_c:.3f} s on "
+                    "the CPU")
+            if not f64:
+                line += "; worst against the CPU's float64 step: " + ", ".join(
+                    "{} {:.2e}".format(w, worst_grad(
+                        names, runs[w, dt][1], runs["cpu", torch.float64][1],
+                        atol)[0]) for w in ("cuda", "cpu"))
+            say(cl, line)
+            ok = (d_loss <= FT_LOSS_TOL and worst[0] <= FT_GRAD_RTOL
+                  and d_stats <= FT_STATS_TOL) if f64 else (
+                      d_loss <= TRAIN_LOSS_TOL)
+            if not ok:
+                failures.append(f"vocoder train step, card vs CPU ({mode}, "
+                                f"{dt})")
+    for seed in (0, 1):
+        batch = crops(c["voc_batch_size"], seed)
+        f64 = step("MOL", torch.float64, "cuda", batch)
+        worst, line = {}, []
+        for where, tf32 in (("cuda", False), ("cpu", False), ("cuda", True)):
+            f32 = step("MOL", torch.float32, where, batch, tf32)
+            name = where + (" TF32 (control)" if tf32 else "")
+            worst[name] = worst_grad(f32[4], f32[1], f64[1], TRAIN_GRAD_ATOL)
+            line.append(f"{name}: loss relative "
+                        f"{abs(f32[0] - f64[0]) / abs(f64[0]):.2e}, worst "
+                        f"gradient {worst[name][1]} {worst[name][0]:.2e}")
+        say(cl, f"vocoder float32 train step at {c['voc_batch_size']} crops "
+                f"(MOL, crop draw {seed}) against the card's float64 step "
+                f"(tol {VT_F32_GRAD}; the control past it): "
+                + "; ".join(line))
+        if not (worst["cuda"][0] <= VT_F32_GRAD
+                and worst["cpu"][0] <= VT_F32_GRAD
+                and worst["cuda TF32 (control)"][0] > VT_F32_GRAD):
+            failures.append(f"vocoder float32 train step at "
+                            f"{c['voc_batch_size']} crops (draw {seed})")
+
+
+def _deterministic_runs(cdir, store):
+    """Start VT_DET_STEPS-step ``train_wavernn`` runs, sessions "det_a"
+    and "det_b", each in a process of its own under
+    ``torch.use_deterministic_algorithms(True)``, cuDNN deterministic and
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (read when cuBLAS starts, so set
+    before the process touches the card). Returns the processes."""
+    import os
+    code = ("import sys, torch\n"
+            "torch.use_deterministic_algorithms(True)\n"
+            "torch.backends.cudnn.deterministic = True\n"
+            "torch.backends.cudnn.benchmark = False\n"
+            "from etts_torch.train_wavernn import main\n"
+            "main(sys.argv[1:])\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(ROOT))
+    return [subprocess.Popen(
+        [sys.executable, "-c", code, "--config", str(cdir), "--data",
+         str(store), "--session_name", name, "--max_steps",
+         str(VT_DET_STEPS)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name in ("det_a", "det_b")]
+
+
+def _deterministic_outcome(cl, cdir, cm, det, failures):
+    """Wait for ``_deterministic_runs``' processes and hold their
+    step-VT_DET_STEPS checkpoints bit for bit (weights, statistics, Adam
+    state); print how far the in-process run of session ``cm`` (default
+    algorithms) is from them. A process whose error ends in torch's
+    RuntimeError "<op> does not have a deterministic implementation" names
+    that op (no failure: the check cannot be made); any other nonzero
+    return goes to ``failures``."""
+    import torch
+    from etts_torch.utils.config import ConfigManager
+    refused, crashed = [], []
+    for p in det:
+        _, err = p.communicate(timeout=900)
+        if p.returncode == 0:
+            continue
+        last = (err.strip().splitlines() or [""])[-1]
+        m = re.match(r"RuntimeError: (\S+) does not have a deterministic "
+                     r"implementation", last)
+        if m:
+            refused.append(m.group(1))
+        else:
+            crashed.append(f"return code {p.returncode}: {err[-2000:]}")
+    if crashed:
+        say(cl, "deterministic vocoder runs failed: " + " | ".join(crashed))
+        failures.append("deterministic vocoder runs failed")
+        return
+    if refused:
+        say(cl, "deterministic vocoder runs: ops without a deterministic "
+                f"implementation on the card: {sorted(set(refused))}")
+        return
+    a, b = (torch.load(ConfigManager(cdir, "wavernn", n).weights_dir
+                       / f"ckpt-{VT_DET_STEPS}.pt", map_location="cpu",
+                       weights_only=True) for n in ("det_a", "det_b"))
+    default = torch.load(cm.weights_dir / f"ckpt-{VT_DET_STEPS}.pt",
+                         map_location="cpu", weights_only=True)
+    same = lambda x, y: all(torch.equal(x["model"][k], y["model"][k])
+                            for k in x["model"])
+    opt = lambda o: [t for s in o["state"].values() for t in s.values()]
+    bit_equal = same(a, b) and all(
+        torch.equal(x, y) for x, y in zip(opt(a["optimizer"]),
+                                          opt(b["optimizer"])))
+    gap = max(float((a["model"][k].double()
+                     - default["model"][k].double()).abs().max())
+              for k in a["model"] if a["model"][k].is_floating_point())
+    say(cl, f"two train_wavernn runs of {VT_DET_STEPS} steps under "
+            "torch.use_deterministic_algorithms(True), cuDNN deterministic, "
+            "CUBLAS_WORKSPACE_CONFIG=:4096:8 (each in a process of its "
+            f"own): weights, statistics and Adam state bit-equal "
+            f"{bit_equal}; the in-process run (default algorithms) at that "
+            f"step bit-equal {same(a, default)}, largest difference "
+            f"{gap:.3e}")
+    if not bit_equal:
+        failures.append("deterministic vocoder runs differ")
+
+
+def vocoder_train_phase(cl, voc26, failures):
+    """Phase 12: the vocoder's training flow, the reference's own (wavs ->
+    store -> train -> checkpoints -> vocode; GTA mels of an AR checkpoint
+    -> train on them), at configs/default's full width (MOL, rnn and fc
+    512, compute and res_out 128, 10 res blocks, upsample (5, 5, 8), hop
+    200, batch 64 crops of 5 hops), each entry point's ``main`` run in
+    this process:
+      1. VT_UTTS seeded wavs (``ref_wav``, VT_SECONDS long) through
+         ``preprocess_wavernn`` on the card;
+      2. one train step card against CPU (``_vocoder_step_check``) and
+         the step's split at batch 64;
+      3. ``train_wavernn`` for VT_STEPS[0] steps, then resumed to
+         VT_STEPS[1], cut to ``voc_checkpoint_every`` VT_CKPT (from
+         25 000), ``voc_gen_at_checkpoint`` 1 (from 5),
+         ``voc_test_samples`` 4 (from 50): the restore, the utterances of
+         every step against the permutation stream replayed, the step
+         time, target samples a second, peak memory, a wav a checkpoint
+         (B1);
+      4. the last checkpoint's export (``export_flat``, with its moved
+         ``batch_stats:``) through VocoderSynthesizer (bf16) on a held-out
+         utterance, timed: the launches read around it (B1 once), the
+         share of samples at |x| >= 0.999 beside the 26k export's on the
+         same mel;
+      5. two deterministic VT_DET_STEPS-step runs in processes of their
+         own (``_deterministic_runs``), started here and read at the end
+         (5-7 share the card with them: the times 6 and 7 print are read
+         as such); B1 on the conditioning of the test utterances, one
+         step at a time from the same state against exact sums
+         (``one_step_check`` in MOL, with its float32-activation control:
+         STATE_TOL_TRAINED, SAMPLE_MARGIN_TRAINED);
+      6. ``gen_wavernn --data`` (the store's last 2) and ``--file``;
+      7. ``make_gta`` on phase 11's r = 1 AR session over phase 9's corpus,
+         card against CPU on VT_CPU_ROWS rows (VT_GTA_TOL); a store of the
+         GTA mels with seeded audio of each mel's length (``quant/`` and
+         ``dataset.pkl`` written here), and ``train_wavernn --gta`` for
+         VT_GTA_STEPS steps at ``--batch_size`` VT_GTA_BATCH (the corpus
+         holds 64 utterances);
+      8. the deterministic runs' step-VT_DET_STEPS checkpoints held bit for
+         bit (an op that refuses deterministic mode is named instead).
+    The losses and wavs say nothing of quality (seeded audio). Failed
+    checks go to ``failures``; returns {path: read_launches()} for
+    "vocoder_train", "vocoder_export", "gen_wavernn" and "gta_train"."""
+    import contextlib
+    import io
+    import pickle
+    import shutil
+    import statistics
+    import numpy as np
+    import torch
+    import yaml
+    from etts_torch import (gen_wavernn, make_gta, preprocess_wavernn,
+                            train_wavernn)
+    from etts_torch.api import VocoderSynthesizer
+    from etts_torch.convert import export_flat
+    from etts_torch.data.audio_io import load_wav, save_wav
+    from etts_torch.data.builders import _quantize
+    from etts_torch.data.dataset import (DataPrepper, Dataset, load_files)
+    from etts_torch.models.init import init_flax
+    from etts_torch.text import default_tokenizer
+    from etts_torch.train.state import TrainState
+    from etts_torch.train.steps import (make_autoregressive_val_step,
+                                        make_wavernn_train_step)
+    from etts_torch.utils.config import ConfigManager, build_vocoder
+    from etts_torch.ops.kernels import wavernn_cell as wcell
+    from etts_torch.utils.logging import read_scalars
+    build = ROOT / "build"
+    root = build / "phase12"
+    shutil.rmtree(root, ignore_errors=True)
+    cdir, wavs, store = root / "config", root / "wavs", root / "store"
+    for x in (cdir, wavs):
+        x.mkdir(parents=True)
+    for kind, over in (
+            ("data", dict(log_directory=str(root / "logs"))),
+            ("wavernn", dict(voc_checkpoint_every=VT_CKPT,
+                             voc_gen_at_checkpoint=1, voc_test_samples=4))):
+        cfg = yaml.safe_load((CONFIG / f"{kind}_config.yaml").read_text())
+        cfg.update(over)
+        (cdir / f"{kind}_config.yaml").write_text(yaml.safe_dump(cfg))
+    paths = {}
+    det = []
+
+    def entry(main, *args):
+        return run_main(main, ["--config", str(cdir), *args])
+    try:
+        # 1. wavs -> the store, on the card
+        rng = np.random.default_rng(12)
+        seconds = rng.uniform(*VT_SECONDS, VT_UTTS)
+        for i, sec in enumerate(seconds):
+            save_wav(ref_wav(100 + i, float(sec)), wavs / f"v{i:03d}.wav",
+                     16000)
+        secs, out, _ = entry(preprocess_wavernn.main, "--wav_dir", str(wavs),
+                             "--out_dir", str(store), "--njobs", "4")
+        index = pickle.load(open(store / "dataset.pkl", "rb"))
+        say(cl, f"preprocess_wavernn: {len(index)} wavs ({seconds.sum():.1f}"
+                f" s of audio) in {secs:.2f} s; " + out.strip())
+        if len(index) != VT_UTTS:
+            failures.append(f"preprocess_wavernn wrote {len(index)} items")
+
+        # 2. the step, card against CPU; the split at batch 64
+        _vocoder_step_check(cl, cdir, store, failures)
+        cm = ConfigManager(cdir, "wavernn", "phase12")
+        c = cm.config
+        model = build_vocoder(c)
+        init_flax(model, torch.Generator().manual_seed(0)).to("cuda")
+        state = TrainState(model, [[0, 1e-4]])
+        vstep = make_wavernn_train_step(model)
+        ids = train_wavernn.vocoder_ids(store, c, False)
+        ds = train_wavernn.VocoderDataset(ids, store)
+        batch = train_wavernn.to_device(next(train_wavernn.vocoder_batches(
+            ds, c["voc_batch_size"], c["voc_seq_len_hops"] * c["hop_length"],
+            c["hop_length"], c["voc_pad"], c["voc_mode"], c["bits"],
+            np.random.default_rng(0), np.random.default_rng(1))), "cuda")
+        step_split(cl, "vocoder train step", state,
+                   lambda: vstep(state, batch), reps=3, prof_steps=1)
+        del model, state, batch
+
+        # 3. the driver: a run, then resumed; the utterances each step read
+        seen = {}
+
+        class Recorded(train_wavernn.VocoderDataset):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.log = seen.setdefault(len(seen), [])
+
+            def __getitem__(self, index):
+                self.log.append(self.metadata[index])
+                return super().__getitem__(index)
+
+        dataset_cls = train_wavernn.VocoderDataset
+        train_wavernn.VocoderDataset = Recorded
+        outs, bases, streams = [], {}, []
+        try:
+            zero_launches()
+            for steps in VT_STEPS:
+                seen.clear()
+                secs, out, bases[steps - 1] = entry(
+                    train_wavernn.main, "--data", str(store),
+                    "--session_name", "phase12", "--max_steps", str(steps))
+                torch.cuda.synchronize()
+                streams.append(seen[0])
+                outs.append(out)
+                say(cl, f"train_wavernn --max_steps {steps}: {secs:.1f} s; "
+                        + " | ".join(out.strip().splitlines()[-3:]))
+            paths["vocoder_train"] = read_launches()
+        finally:
+            train_wavernn.VocoderDataset = dataset_cls
+        if f"restored vocoder weights at step {VT_STEPS[0]}" not in outs[1]:
+            failures.append(f"train_wavernn: no restore at {VT_STEPS[0]}")
+        # the permutation stream replayed: batch k is the first 64 of the
+        # k-th epoch's permutation (one batch an epoch)
+        test_ids, train_ids = train_wavernn.split_ids(ids, 4)
+        perm = np.random.default_rng(train_wavernn.PERM_SEED)
+        bs = c["voc_batch_size"]
+        want = [[train_ids[j] for j in perm.permutation(len(train_ids))[:bs]]
+                for _ in range(VT_STEPS[1])]
+        got = [streams[0][k * bs:(k + 1) * bs] for k in range(VT_STEPS[0])]
+        got += [streams[1][k * bs:(k + 1) * bs]
+                for k in range(VT_STEPS[1] - VT_STEPS[0])]
+        stream_ok = got == want
+        say(cl, f"train_wavernn: {len(train_ids)} training and "
+                f"{len(test_ids)} test utterances; the utterances of steps "
+                f"0-{VT_STEPS[1] - 1} (the resumed run's too) are the "
+                f"permutation stream's: {stream_ok}")
+        if not stream_ok:
+            failures.append("train_wavernn: the batches left the "
+                            "permutation stream")
+        sc = read_scalars(cm.log_dir)
+        span = range(3, VT_STEPS[0])
+        step_ms = [sc["time/step_ms"][i] for i in span]
+        samples = sum(sc["meta/target_samples"][i] for i in span)
+        peak = sc.get("meta/max_memory_allocated", {})
+        losses = sc["train/loss"]
+        gens = sorted(p.name for p in cm.log_dir.glob("gen_*.wav"))
+        say(cl, f"vocoder training, steps 3-{VT_STEPS[0] - 1} (host "
+                f"clock, "
+                f"synchronised): median {statistics.median(step_ms):.2f} "
+                f"ms/step (min {min(step_ms):.2f}, max {max(step_ms):.2f}); "
+                f"{samples / sum(step_ms) * 1e3:.0f} target samples/s; peak "
+                "memory of the run "
+                + ", ".join(f"{(v - bases[k]) / 2**30:.3f} GiB (run to "
+                            f"{k + 1})" for k, v in sorted(peak.items()))
+                + f"; losses {dict(sorted(losses.items()))}; wavs {gens}; "
+                f"launches {paths['vocoder_train']}")
+        want_gens = sorted(f"gen_{n}_0.wav"
+                           for n in range(VT_CKPT, VT_STEPS[1] + 1, VT_CKPT))
+        sync_every = c["metrics_sync_frequency"]
+        want_losses = sorted({k for k in range(VT_STEPS[1])
+                              if k % sync_every == 0}
+                             | {n - 1 for n in VT_STEPS})
+        if not (sorted(losses) == want_losses
+                and all(math.isfinite(v) for v in losses.values())
+                and sorted(peak) == [n - 1 for n in VT_STEPS]
+                and gens == want_gens
+                and paths["vocoder_train"]["wavernn_sample_loop"]
+                == len(want_gens)):
+            failures.append(f"vocoder training log: losses {losses}, peak "
+                            f"{sorted(peak)}, wavs {gens}, launches "
+                            f"{paths['vocoder_train']}")
+
+        # 4. the last checkpoint's export through VocoderSynthesizer and B1
+        with contextlib.redirect_stdout(io.StringIO()):
+            trained, step, _ = cm.load_model()
+        flat = export_flat(trained)
+        stats = {k: v for k, v in flat.items() if k.startswith("batch_stats")}
+        moved = sum(not (np.all(v == 0) or np.all(v == 1))
+                    for v in stats.values())
+        voc = VocoderSynthesizer(cdir, flat, "cuda")
+        mel = np.load(store / "mel" / f"{test_ids[0]}.npy").T
+        voc.generate(mel, seed=0)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = voc.generate(mel, seed=0)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        paths["vocoder_export"] = ran = read_launches()
+        wav26 = voc26.generate(mel, seed=0)
+        sat = lambda w: float((np.abs(w) >= 0.999).mean())
+        audio_s = wav.shape[0] / c["sampling_rate"]
+        say(cl, f"trained vocoder export (step {step}): {len(stats)} "
+                f"batch_stats arrays, {moved} moved from their init; "
+                f"{test_ids[0]} ({mel.shape[0]} frames) -> {wav.shape[0]} "
+                f"samples ({audio_s:.3f} s) in {e2e:.3f} s, RTF "
+                f"{e2e / audio_s:.4f}; launches {ran}; samples at |x| >= "
+                f"0.999: {sat(wav):.4f} (the 26k export on the same mel: "
+                f"{sat(wav26):.4f})")
+        want = {k: 0 for k in ran} | {"wavernn_sample_loop": 1}
+        if not (ran == want and len(stats) == 2 * (1 + 2 * c["voc_res_blocks"])
+                and moved == len(stats) and np.isfinite(wav).all()
+                and wav.shape[0] == (mel.shape[0] - 1) * c["hop_length"]):
+            failures.append(f"trained vocoder export: launches {ran}, "
+                            f"{moved} of {len(stats)} statistics moved")
+        # 5. the deterministic runs, in processes of their own, started
+        # after the timed runs and the export's timed call; B1 one step at
+        # a time on the export
+        det = _deterministic_runs(cdir, store)
+        cond = torch.cat([vocoder_cond(voc, np.load(
+            store / "mel" / f"{i}.npy").T * 8.0 - 4.0) for i in test_ids], 1)
+        say(cl, f"the trained export's conditioning, its {len(test_ids)} "
+                f"test utterances folded: {tuple(cond.shape)}, max |value| "
+                f"{float(cond.abs().max()):.3f}")
+        wts = voc.weights
+        one_step_check(cl, "bf16 (the trained vocoder export)", wts,
+                       f32_activations(wts),
+                       lambda c_: wcell._bf16_step(c_, wts, torch.float64),
+                       None, cond, (cond.shape[1],), STATE_TOL_TRAINED,
+                       SAMPLE_MARGIN_TRAINED, failures, n_steps=VT_ONE_STEP,
+                       mode=voc.model.mode, n_classes=voc.model.n_classes)
+
+        # 6. gen_wavernn on the session: the store's last 2, and one file
+        out_dir = root / "gen"
+        zero_launches()
+        secs = 0.0
+        for args in (["--data", str(store), "--samples", "2"],
+                     ["--file", str(store / "mel" / f"{test_ids[1]}.npy")]):
+            s_, out, _ = entry(gen_wavernn.main, "--session_name", "phase12",
+                               "--out_dir", str(out_dir), *args)
+            secs += s_
+        torch.cuda.synchronize()
+        paths["gen_wavernn"] = ran = read_launches()
+        frames = dict(index)
+        names = [i for i, _ in index[-2:]] + [test_ids[1]]
+        lens = {n: load_wav(out_dir / f"{n}_batched.wav")[0].shape[0]
+                for n in names}
+        ok = (all(lens[n] == (frames[n] - 1) * c["hop_length"] for n in names)
+              and ran["wavernn_sample_loop"] == 3)
+        say(cl, f"gen_wavernn --data (2) and --file (the card shared with "
+                f"the deterministic runs): {secs:.2f} s, samples "
+                f"{lens}, launches {ran}")
+        if not ok:
+            failures.append(f"gen_wavernn: {lens}, launches {ran}")
+
+        # 7. GTA mels of phase 11's AR session, card against CPU; then
+        # train on them
+        acfg = build / "phase11_config"
+        corpus = build / "phase9_corpus"
+        gta_store = root / "gta_store"
+        secs, out, _ = run_main(make_gta.main, [
+            "--config", str(acfg), "--session_name", "phase11",
+            "--voc_data", str(gta_store)])
+        gta = sorted((gta_store / "gta").glob("*.npy"))
+        say(cl, f"make_gta on the card (shared with the deterministic "
+                f"runs): {len(gta)} mels in {secs:.2f} s; "
+                + out.strip().splitlines()[-1])
+        acm = ConfigManager(acfg, "autoregressive", "phase11")
+        samples_, _ = load_files(corpus / "train_metafile.txt",
+                                 corpus / "mels", corpus / "spk_embeds")
+        host = Dataset(samples_[:VT_CPU_ROWS],
+                       DataPrepper(acm.config, default_tokenizer(True)),
+                       VT_CPU_ROWS, shuffle=False,
+                       mel_channels=acm.config["mel_channels"]).next_batch()
+        rows = {}
+        for where in ("cuda", "cpu"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                model, _, sched = acm.load_model(device=where)
+            rows[where] = make_gta.gta_batch(
+                make_autoregressive_val_step(model), host, where,
+                sched["reduction_factor"])
+        d_gta = max(float(np.abs(a - b).max()) / 8.0
+                    for a, b in zip(rows["cuda"], rows["cpu"]))
+        shapes = all(np.load(p).shape == np.load(
+            corpus / "mels" / p.name).shape[::-1] for p in gta)
+        say(cl, f"make_gta, card vs CPU ({VT_CPU_ROWS} rows of "
+                f"{[r.shape[0] for r in rows['cpu']]} frames): max |d| "
+                f"{d_gta:.3e} in the vocoder's [0, 1] (tol {VT_GTA_TOL}); "
+                f"every file (n_mels, its mel's frames): {shapes}")
+        if not (len(gta) == len(samples_) and d_gta <= VT_GTA_TOL
+                and shapes):
+            failures.append("make_gta")
+        (gta_store / "quant").mkdir()
+        qrng = np.random.default_rng(5)
+        gindex = []
+        for p in gta:
+            t = np.load(p).shape[1]
+            y = 0.3 * np.tanh(qrng.standard_normal(t * c["hop_length"]))
+            np.save(gta_store / "quant" / p.name,
+                    _quantize(y.astype(np.float32), "MOL", 9, True, False))
+            gindex.append((p.stem, t))
+        with open(gta_store / "dataset.pkl", "wb") as f:
+            pickle.dump(gindex, f)
+        zero_launches()
+        secs, out, _ = entry(train_wavernn.main, "--data", str(gta_store),
+                             "--gta", "--session_name", "phase12_gta",
+                             "--batch_size", str(VT_GTA_BATCH),
+                             "--max_steps", str(VT_GTA_STEPS))
+        torch.cuda.synchronize()
+        paths["gta_train"] = ran = read_launches()
+        gsc = read_scalars(ConfigManager(cdir, "wavernn",
+                                         "phase12_gta").log_dir)
+        g_loss = gsc["train/loss"]
+        say(cl, f"train_wavernn --gta, {VT_GTA_STEPS} steps at batch "
+                f"{VT_GTA_BATCH} (the card shared with the deterministic "
+                f"runs): {secs:.1f} s, median "
+                f"{statistics.median(gsc['time/step_ms'].values()):.2f} "
+                f"ms/step; losses {dict(sorted(g_loss.items()))}; launches "
+                f"{ran}")
+        if not (sorted(g_loss) == [0, VT_GTA_STEPS - 1]
+                and all(math.isfinite(v) for v in g_loss.values())
+                and ran["wavernn_sample_loop"] == 1):
+            failures.append(f"train_wavernn --gta: {g_loss}, {ran}")
+
+        # 8. the deterministic runs
+        _deterministic_outcome(cl, cdir, cm, det, failures)
+    finally:
+        for p in det:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return paths
+
+
 def _sync_ms(fn):
     """Host milliseconds of fn(), synchronised before and after, and its
     result."""
@@ -2094,11 +2712,9 @@ def main() -> int:
     # control (one_step_check)
     peaky = dataclasses.replace(rand_raw, wf3=rand_raw.wf3 * PEAKY,
                                 bf3=torch.zeros_like(rand_raw.bf3))
-    f32act = lambda w_: dataclasses.replace(w_, **{
-        k: getattr(w_, k).float() for k in wcell.MATRICES})
-    one_step_check(cl, "bf16", peaky, f32act(peaky),
+    one_step_check(cl, "bf16", peaky, f32_activations(peaky),
                    lambda c: wcell._bf16_step(c, peaky, torch.float64),
-                   None, cond_seeded, all_b, ww.d, STATE_TOL, PEAKY_MARGIN,
+                   None, cond_seeded, all_b, STATE_TOL, PEAKY_MARGIN,
                    failures)
     cond = cond_all[:, :5].contiguous()
     one, st1 = wcell.wavernn_sample_loop(cond, rand_mol, seed=7)
@@ -2175,7 +2791,7 @@ def main() -> int:
                                  bf3=torch.zeros_like(rand_raw8.bf3))
     one_step_check(cl, "int8", peaky8, dequantized(peaky8),
                    lambda c: wcell._int8_step(c, peaky8, False, torch.float64),
-                   "int8", cond_seeded, all_b, ww.d, STATE_TOL_INT8,
+                   "int8", cond_seeded, all_b, STATE_TOL_INT8,
                    PEAKY_MARGIN_INT8, failures)
     cond = cond_all[:, :5].contiguous()
     for wdt in q_err:
@@ -2297,7 +2913,7 @@ def main() -> int:
     agree = float((diff <= STEP_TOL).float().mean())
     # not in voc_err: on the export's conditioning one bf16 step of an
     # activation is large, and a mixture pick turned at the clip is 2.0
-    c_out, _ = wcell.wavernn_sample_loop_plain(cond, f32act(rand_mol),
+    c_out, _ = wcell.wavernn_sample_loop_plain(cond, f32_activations(rand_mol),
                                                teacher=k_out, **kw)
     control = float(((k_out - c_out).abs() <= STEP_TOL).float().mean())
     say(cl, f"wavernn_sample_loop vs plain (seeded random weights, {mode}, "
@@ -2483,6 +3099,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths |= forward_train_phase(cl, voc, failures)
     say(cl, f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12. the vocoder's training flow, the trained export through B1 --
+    t0 = time.perf_counter()
+    paths |= vocoder_train_phase(cl, voc, failures)
+    say(cl, f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "fused_decode", "route": "cuda",

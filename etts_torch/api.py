@@ -2,8 +2,9 @@
 (text + reference audio + speaker -> mel with the autoregressive model, or
 text -> mel with the forward model), ``VocoderSynthesizer`` (mel ->
 waveform) and ``TacotronSynthesizer`` (GST-Tacotron text + reference mel
--> waveform through Griffin-Lim), each loading a flat npz weight export,
-and the streamed synthesis ``TTSSynthesizer.stream``. Each constructor
+-> waveform through Griffin-Lim), each loading a flat npz weight export
+(the vocoder also a ``train_wavernn`` checkpoint), and the streamed
+synthesis ``TTSSynthesizer.stream``. Each constructor
 pins the checked float32 precision (``utils.precision``).
 
 On the card both run their CUDA kernels: the fused decode for one text
@@ -29,9 +30,9 @@ from .ops.griffin_lim import griffin_lim
 from .ops.kernels.decoder_step import can_fuse, decode_weights, fused_decode
 from .ops.normalizers import db_to_amp, deemphasis, denormalize_db
 from .text import text_to_sequence
-from .utils.config import (build_forward, build_tacotron, build_tts,
-                           build_vocoder, load_config, schedule_values,
-                           text_pipeline)
+from .utils.config import (ConfigManager, build_forward, build_tacotron,
+                           build_tts, build_vocoder, load_config,
+                           schedule_values, text_pipeline)
 from .utils.precision import pin_float32
 
 __all__ = ["TTSSynthesizer", "VocoderSynthesizer", "TacotronSynthesizer"]
@@ -285,14 +286,27 @@ class VocoderSynthesizer:
     ``int8_weights`` (per call, else the config key ``voc_int8_weights``):
     True runs the "int8" sample loop, "mxu" the "int8_mxu" one, falsy the
     bf16 one. The int8 weights are quantized from the float32 parameters at
-    their first use and kept; both int8 modes share them."""
+    their first use and kept; both int8 modes share them.
 
-    def __init__(self, config_dir, weights_npz, device="cuda"):
+    The weights come from the flat npz ``weights_npz`` (or such a dict),
+    or, where it is None, from a training session of ``train_wavernn``
+    (`etts/api.py:296-312`): the checkpoint ``ckpt-{checkpoint}.pt`` (the
+    latest where None) of session ``session_name`` under the config's
+    ``log_directory``, its BatchNorm running statistics with it."""
+
+    def __init__(self, config_dir, weights_npz=None, device="cuda", *,
+                 session_name: Optional[str] = None,
+                 checkpoint: Optional[int] = None):
         pin_float32()
         self.device = torch.device(device)
-        self.config = load_config(config_dir, "wavernn")
-        self.model = load_into(build_vocoder(self.config),
-                               weights_npz).to(self.device)
+        if weights_npz is None:
+            cm = ConfigManager(config_dir, "wavernn", session_name)
+            self.config = cm.config
+            self.model = cm.load_model(checkpoint, self.device)[0]
+        else:
+            self.config = load_config(config_dir, "wavernn")
+            self.model = load_into(build_vocoder(self.config),
+                                   weights_npz).to(self.device)
         self.weights = self.model.sample_weights(_weight_dtype(self.device))
         self._int8_weights = None
 

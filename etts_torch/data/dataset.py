@@ -1,6 +1,8 @@
-"""The TTS input pipeline (own copy of ``etts/data/dataset.py``'s
+"""The input pipelines (own copy of ``etts/data/dataset.py``'s
 ``load_files``, ``DataPrepper``, ``GTADataPrepper``, ``ForwardDataPrepper``,
-``Dataset`` and ``Prefetcher``; the port imports nothing of etts).
+``Dataset`` and ``Prefetcher``, and of the vocoder's ``VocoderDataset``,
+``collate_vocoder`` and ``fast_forward_permutation``; the port imports
+nothing of etts).
 
 Batches are padded up to multiples (``pad_text_multiple`` 8,
 ``pad_mel_multiple`` 32) as etts pads them: the Keras-reduced loss divides
@@ -19,7 +21,8 @@ from typing import Callable, Optional
 import numpy as np
 
 __all__ = ["load_files", "DataPrepper", "GTADataPrepper",
-           "ForwardDataPrepper", "Dataset", "Prefetcher", "pad_to_multiple"]
+           "ForwardDataPrepper", "Dataset", "Prefetcher", "pad_to_multiple",
+           "VocoderDataset", "collate_vocoder", "fast_forward_permutation"]
 
 
 def load_files(metafile, mel_dir, spk_embed_dir=None, num_samples=None):
@@ -282,6 +285,70 @@ class Dataset:
         restarts its epoch."""
         self.batch_size = batch_size
         self.data_iter = self._infinite_iter()
+
+
+def fast_forward_permutation(rng, n_items: int, batch_size: int,
+                             n_steps: int) -> int:
+    """Resume a stream that draws ``rng.permutation(n_items)`` once an
+    epoch and batches it in order, dropping the remainder: advance ``rng``
+    past the whole epochs that ``n_steps`` batches took, and return the
+    batches of the current epoch to skip (`etts/data/dataset.py:27-40`)."""
+    epoch_b = n_items // batch_size
+    if not n_steps or not epoch_b:
+        return 0
+    n_epochs, skip = divmod(n_steps, epoch_b)
+    for _ in range(n_epochs):
+        rng.permutation(n_items)
+    return skip
+
+
+class VocoderDataset:
+    """The pairs ``{path}/mel/{id}.npy`` (or ``gta/`` with ``train_gta``),
+    (n_mels, t), and ``{path}/quant/{id}.npy``, the sample labels
+    (`WaveRNN/utility/dataset.py:16-30`)."""
+
+    def __init__(self, ids, path, train_gta: bool = False):
+        self.metadata = list(ids)
+        self.mel_path = os.path.join(str(path), "gta" if train_gta else "mel")
+        self.quant_path = os.path.join(str(path), "quant")
+
+    def __getitem__(self, index):
+        item_id = self.metadata[index]
+        return (np.load(os.path.join(self.mel_path, f"{item_id}.npy")),
+                np.load(os.path.join(self.quant_path, f"{item_id}.npy")))
+
+    def __len__(self):
+        return len(self.metadata)
+
+
+def _label_to_float(x, bits):
+    return 2.0 * x / (2 ** bits - 1.0) - 1.0
+
+
+def collate_vocoder(batch, seq_len: int, hop_length: int, pad: int,
+                    mode: str = "MOL", bits: int = 9,
+                    rng: Optional[np.random.Generator] = None):
+    """Random crops of (mel, labels) pairs (`WaveRNN/utility/dataset.py:
+    65-91`): a window of ``seq_len // hop_length + 2 * pad`` mel frames at
+    an offset drawn from ``rng`` per item, and the ``seq_len + 1`` labels
+    it conditions. Returns float32 x (b, seq_len), the inputs as floats in
+    [-1, 1]; y (b, seq_len), the next samples (floats for MOL, int64
+    labels for RAW); mels (b, mel window, n_mels)."""
+    rng = rng or np.random.default_rng()
+    mel_win = seq_len // hop_length + 2 * pad
+    max_offsets = [x[0].shape[-1] - 2 - (mel_win + 2 * pad) for x in batch]
+    mel_offsets = [int(rng.integers(0, o)) for o in max_offsets]
+    sig_offsets = [(o + pad) * hop_length for o in mel_offsets]
+    mels = np.stack([x[0][:, mel_offsets[i]:mel_offsets[i] + mel_win]
+                     for i, x in enumerate(batch)]).astype(np.float32)
+    labels = np.stack([x[1][sig_offsets[i]:sig_offsets[i] + seq_len + 1]
+                       for i, x in enumerate(batch)]).astype(np.int64)
+    x, y = labels[:, :seq_len], labels[:, 1:]
+    x_bits = 16 if mode == "MOL" else bits
+    x = _label_to_float(x.astype(np.float32), x_bits)
+    if mode == "MOL":
+        y = _label_to_float(y.astype(np.float32), x_bits)
+    return x, y, mels.transpose(0, 2, 1)
 
 
 class Prefetcher:

@@ -7,6 +7,11 @@
   - the GST's GRU input kernel ``lecun_normal``, its recurrent kernel
     orthogonal, its biases zero; the style tokens a normal truncated at 2,
     times 0.5;
+  - WaveRNN's GRU input kernels ``rnn{1,2}_wi`` ``lecun_normal`` (fan-in
+    the rnn width, and that plus the aux width), the recurrent kernels
+    orthogonal, their biases zero (`etts/models/wavernn.py:224-237`); the
+    upsampling's smoothing kernels the constant 1 / (2 s + 1) of their
+    width (`:172-180`), taking no draw; convs without a bias keep none;
   - Embed normal with variance 1 / width (flax's default);
   - the linear MINE critics (``init_std``): kernels and biases normal 0.05;
   - the duration predictor's output bias ones (``bias_init=ones``,
@@ -21,6 +26,7 @@ import torch
 import torch.nn as nn
 
 from .layers import DurationPredictor, ReferenceEncoderGST
+from .wavernn import UpsampleNetwork, WaveRNN
 
 __all__ = ["init_flax"]
 
@@ -40,12 +46,17 @@ def init_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
     # the linear critics' std reaches every layer inside them
     std = {id(c): m.init_std for m in module.modules()
            if hasattr(m, "init_std") for c in m.modules()}
+    smooth = {id(getattr(m, f"smooth_{i}")) for m in module.modules()
+              if isinstance(m, UpsampleNetwork) for i in range(len(m.scales))}
     for sub in module.modules():
         normal_std = std.get(id(sub))
-        if isinstance(sub, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        if id(sub) in smooth:
+            sub.weight.fill_(1.0 / sub.weight.shape[-1])
+        elif isinstance(sub, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             if normal_std is None:
                 _lecun(sub.weight, sub.weight[0].numel(), g)
-                sub.bias.zero_()
+                if sub.bias is not None:
+                    sub.bias.zero_()
         elif isinstance(sub, nn.Embedding):
             sub.weight.normal_(0.0, sub.weight.shape[1] ** -0.5, generator=g)
         elif isinstance(sub, (nn.LayerNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
@@ -58,6 +69,13 @@ def init_flax(module: nn.Module, generator: torch.Generator) -> nn.Module:
             nn.init.trunc_normal_(sub.gst_tokens, 0.0, 1.0, -2.0, 2.0,
                                   generator=g)
             sub.gst_tokens.mul_(0.5)
+        elif isinstance(sub, WaveRNN):
+            for name in ("rnn1", "rnn2"):
+                wi = getattr(sub, f"{name}_wi")
+                _lecun(wi, wi.shape[0], g)
+                nn.init.orthogonal_(getattr(sub, f"{name}_wh"), generator=g)
+                getattr(sub, f"{name}_bi").zero_()
+                getattr(sub, f"{name}_bh").zero_()
         if normal_std is not None:
             for p in sub.parameters(recurse=False):
                 p.normal_(0.0, normal_std, generator=g)

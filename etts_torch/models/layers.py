@@ -66,11 +66,12 @@ def head_drop(x, drop_n: int, scores):
     return x * keep * (h / max(h - drop_n, 1))
 
 
-def batch_norm(bn, x, train: bool):
+def batch_norm(bn, x, train: bool, momentum: float = BN_MOMENTUM):
     """flax ``BatchNorm`` on x (b, c, ...) with ``bn``'s parameters and
     running statistics: those statistics unless ``train``; else the batch's
-    (biased variance), and the running ones move by ``BN_MOMENTUM`` under
-    no_grad, as flax's mutable ``batch_stats``."""
+    (biased variance), and the running ones move by ``momentum`` (flax's:
+    running = momentum * running + (1 - momentum) * batch) under no_grad,
+    as flax's mutable ``batch_stats``."""
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
@@ -78,7 +79,7 @@ def batch_norm(bn, x, train: bool):
         dims = [0, *range(2, x.dim())]
         for stat, batch in ((bn.running_mean, x.mean(dims)),
                             (bn.running_var, x.var(dims, unbiased=False))):
-            stat.mul_(BN_MOMENTUM).add_(batch, alpha=1 - BN_MOMENTUM)
+            stat.mul_(momentum).add_(batch, alpha=1 - momentum)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 

@@ -1,12 +1,17 @@
-"""WaveRNN vocoder inference (port of ``etts/models/wavernn.py``).
+"""WaveRNN vocoder (port of ``etts/models/wavernn.py``).
 
-MelResNet conditioning + stretch/smoothing-conv upsampling, batched
-generation through ``fold_with_overlap`` / ``xfade_and_unfold``, and the
-sample loop of ``etts_torch.ops.kernels.wavernn_cell`` (CUDA kernel on the
-card, plain version on the CPU). Module names follow the flax tree.
+MelResNet conditioning + stretch/smoothing-conv upsampling, the
+teacher-forced forward of training (``train=True``: BatchNorm on the
+batch's statistics, the running ones moved as flax moves them, momentum
+0.9) and its discretized mixture-of-logistics loss, batched generation
+through ``fold_with_overlap`` / ``xfade_and_unfold``, and the sample loop
+of ``etts_torch.ops.kernels.wavernn_cell`` (CUDA kernel on the card, plain
+version on the CPU). Module names follow the flax tree.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Sequence
 
 import numpy as np
@@ -19,8 +24,70 @@ from ..ops.kernels.wavernn_cell import (Int8SampleLoopWeights,
                                         SampleLoopWeights,
                                         wavernn_sample_loop)
 from ..ops.normalizers import mu_law_decode
+from .layers import batch_norm
 
 BN_EPS = 1e-5          # flax BatchNorm default
+BN_MOMENTUM = 0.9      # etts' BatchNorm(momentum=0.9), `wavernn.py:119`
+
+
+def log_sum_exp(x):
+    """log(sum(exp(x))) over the last axis, shifted by its max."""
+    m = x.max(-1).values
+    return m + torch.log(torch.exp(x - m[..., None]).sum(-1))
+
+
+def discretized_mix_logistic_loss(y_hat, y, num_classes: int = 65536,
+                                  log_scale_min: float | None = None,
+                                  reduce: bool = True):
+    """Negative log-likelihood of y (B, T, 1) in [-1, 1] under the mixture
+    of discretized logistics y_hat (B, T, 3 * nr_mix) (logits, means, log
+    scales), term for term as `etts/models/wavernn.py:49-84`
+    (`WaveRNN/utility/distribution.py:16-84`): the edge classes at |y| >
+    0.999 take the logistic's tail; elsewhere log(cdf_delta), clamped at
+    1e-12 so that the branch ``torch.where`` leaves unselected sends no
+    inf * 0 = nan into the gradient, or, where cdf_delta <= 1e-5, the
+    density at the bin's centre times its width."""
+    if log_scale_min is None:
+        log_scale_min = float(np.log(1e-14))
+    nr_mix = y_hat.shape[-1] // 3
+    logit_probs = y_hat[:, :, :nr_mix]
+    means = y_hat[:, :, nr_mix:2 * nr_mix]
+    log_scales = torch.clamp(y_hat[:, :, 2 * nr_mix:3 * nr_mix],
+                             min=log_scale_min)
+    y = y.expand_as(means)
+    centered = y - means
+    inv_stdv = torch.exp(-log_scales)
+    plus_in = inv_stdv * (centered + 1.0 / (num_classes - 1))
+    cdf_plus = torch.sigmoid(plus_in)
+    min_in = inv_stdv * (centered - 1.0 / (num_classes - 1))
+    cdf_min = torch.sigmoid(min_in)
+    log_cdf_plus = plus_in - F.softplus(plus_in)
+    log_one_minus_cdf_min = -F.softplus(min_in)
+    cdf_delta = cdf_plus - cdf_min
+    mid_in = inv_stdv * centered
+    log_pdf_mid = mid_in - log_scales - 2.0 * F.softplus(mid_in)
+    inner_inner = torch.where(
+        cdf_delta > 1e-5, torch.log(torch.clamp(cdf_delta, min=1e-12)),
+        log_pdf_mid - math.log((num_classes - 1) / 2.0))
+    inner = torch.where(y > 0.999, log_one_minus_cdf_min, inner_inner)
+    log_probs = torch.where(y < -0.999, log_cdf_plus, inner)
+    log_probs = log_probs + F.log_softmax(logit_probs, -1)
+    if reduce:
+        return -log_sum_exp(log_probs).mean()
+    return -log_sum_exp(log_probs)[..., None]
+
+
+def raw_loss(logits, y):
+    """Cross-entropy of the int64 labels y (B, T) under logits (B, T,
+    classes): -mean(sum(onehot * log_softmax)), whose backward scatters
+    nothing."""
+    logp = F.log_softmax(logits, -1)
+    return -(F.one_hot(y, logits.shape[-1]).to(logp.dtype) * logp).sum(
+        -1).mean()
+
+
+def _bn(bn, x, train: bool):
+    return batch_norm(bn, x, train, BN_MOMENTUM)
 
 
 class ResBlock(nn.Module):
@@ -31,9 +98,9 @@ class ResBlock(nn.Module):
         self.Conv_1 = nn.Conv1d(dims, dims, 1, bias=False)
         self.BatchNorm_1 = nn.BatchNorm1d(dims, eps=BN_EPS)
 
-    def forward(self, x):
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-        return self.BatchNorm_1(self.Conv_1(y)) + x
+    def forward(self, x, train: bool = False):
+        y = torch.relu(_bn(self.BatchNorm_0, self.Conv_0(x), train))
+        return _bn(self.BatchNorm_1, self.Conv_1(y), train) + x
 
 
 class MelResNet(nn.Module):
@@ -49,10 +116,10 @@ class MelResNet(nn.Module):
         self.n_res = res_blocks
         self.Conv_1 = nn.Conv1d(compute_dims, res_out_dims, 1)
 
-    def forward(self, x):
-        x = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+    def forward(self, x, train: bool = False):
+        x = torch.relu(_bn(self.BatchNorm_0, self.Conv_0(x), train))
         for i in range(self.n_res):
-            x = getattr(self, f"res_{i}")(x)
+            x = getattr(self, f"res_{i}")(x, train)
         return self.Conv_1(x)
 
 
@@ -73,9 +140,10 @@ class UpsampleNetwork(nn.Module):
             conv = nn.Conv2d(1, 1, (1, 2 * s + 1), padding=(0, s), bias=False)
             self.add_module(f"smooth_{i}", conv)
 
-    def forward(self, mels):
-        """mels (b, t, n_mels) -> (mels_up, aux), both (b, (t-2*pad)*hop, .)."""
-        aux = self.resnet(mels.transpose(1, 2)).transpose(1, 2)
+    def forward(self, mels, train: bool = False):
+        """mels (b, t, n_mels) -> (mels_up, aux), both (b, (t-2*pad)*hop, .);
+        ``train``: the MelResNet's BatchNorm on the batch's statistics."""
+        aux = self.resnet(mels.transpose(1, 2), train).transpose(1, 2)
         aux = aux.repeat_interleave(self.total, dim=1)
         x = mels.transpose(1, 2)[:, None]            # (b, 1, mel, T)
         for i, s in enumerate(self.scales):
@@ -118,12 +186,17 @@ class WaveRNN(nn.Module):
         a = self.aux_dims
         return [aux[..., a * i:a * (i + 1)] for i in range(4)]
 
-    @torch.no_grad()
-    def forward(self, x, mels):
-        """Teacher-forced forward at inference (BatchNorm running stats):
-        x (b, T) previous samples, mels (b, t_mel, n_mels) padded by ``pad``
-        on both sides -> logits (b, T, n_classes)."""
-        mels_up, aux = self.upsample(mels)
+    def forward(self, x, mels, train: bool = False):
+        """Teacher-forced forward: x (b, T) previous samples, mels (b,
+        t_mel, n_mels) padded by ``pad`` on both sides -> logits (b, T,
+        n_classes). ``train`` (`etts/models/wavernn.py:245-260`): autograd
+        runs and BatchNorm normalises on the batch's statistics, moving the
+        running ones; else the running statistics, without autograd."""
+        with contextlib.nullcontext() if train else torch.no_grad():
+            return self._forward(x, mels, train)
+
+    def _forward(self, x, mels, train: bool):
+        mels_up, aux = self.upsample(mels, train)
         a1, a2, a3, a4 = self._aux_split(aux)
         h = self.I(torch.cat([x[..., None], mels_up, a1], -1))
         res = h

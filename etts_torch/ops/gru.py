@@ -26,9 +26,12 @@ def gru_scan(wi, wh, bi, bh, xs, h0=None, reverse: bool = False):
     of Tacotron's CBHG BiGRU, `etts/models/tacotron.py:122-123`)."""
     b, t, _ = xs.shape
     h = xs.new_zeros(b, wh.shape[0]) if h0 is None else h0
-    gi_all = xs @ wi + bi
+    # unbind, not an index a step: its backward stacks the steps'
+    # gradients once, where indexing would add t zero-padded copies of
+    # the whole (b, t, 3h) projection
+    gi = (xs @ wi + bi).unbind(1)
     ys = [None] * t
     for i in (reversed(range(t)) if reverse else range(t)):
-        h = gru_cell(gi_all[:, i], h, wh, bh)
+        h = gru_cell(gi[i], h, wh, bh)
         ys[i] = h
     return torch.stack(ys, 1), h

@@ -1,5 +1,6 @@
-"""Mel normalizers (normalize and denormalize), mu-law decoding, and the
-Tacotron path's dB normalization and pre-/de-emphasis filters (port of
+"""Mel normalizers (normalize and denormalize), mu-law companding, the
+float-to-label quantization of the vocoder store, and the Tacotron path's
+dB normalization and pre-/de-emphasis filters (port of
 ``etts/ops/normalizers.py:26-141``)."""
 from __future__ import annotations
 
@@ -7,7 +8,8 @@ import math
 
 import torch
 
-__all__ = ["MelGAN", "WaveRNNNorm", "get_normalizer", "mu_law_decode",
+__all__ = ["MelGAN", "WaveRNNNorm", "get_normalizer", "mu_law_encode",
+           "mu_law_decode", "float_to_label",
            "amp_to_db", "db_to_amp", "normalize_db", "denormalize_db",
            "preemphasis", "deemphasis"]
 
@@ -59,6 +61,21 @@ def get_normalizer(name: str):
         raise ValueError(f"normalizer must be one of {sorted(_NORMALIZERS)}, "
                          f"got {name!r}")
     return _NORMALIZERS[name]()
+
+
+def mu_law_encode(x, mu: int):
+    """Float in [-1, 1] -> label in [0, mu - 1], as a float
+    (`WaveRNN/utility/dsp.py:94-97`)."""
+    m = mu - 1
+    fx = torch.sign(x) * torch.log1p(m * torch.abs(x)) / math.log1p(m)
+    return torch.floor((fx + 1.0) / 2.0 * m + 0.5)
+
+
+def float_to_label(x, bits: int):
+    """Float in [-1, 1] -> label in [0, 2^bits - 1], as a float (callers
+    truncate it to an integer)."""
+    x = (x + 1.0) * (2.0 ** bits - 1.0) / 2.0
+    return torch.clamp(x, 0.0, 2.0 ** bits - 1.0)
 
 
 def mu_law_decode(y, mu: int, from_labels: bool = True):

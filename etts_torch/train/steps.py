@@ -1,5 +1,6 @@
-"""Train and validation steps of the forward and autoregressive models
-and the MINE zoo's updates (port of ``etts/train/steps.py:50-382``).
+"""Train and validation steps of the forward and autoregressive models,
+the MINE zoo's updates and the WaveRNN vocoder's step (port of
+``etts/train/steps.py:50-414``).
 
 The forward step: the masked MAE of the mel and of the durations, weights
 3 and 1, the target durations regulating the lengths; no prenet dropout,
@@ -29,13 +30,15 @@ import hashlib
 import torch
 
 from ..models.mine import MIState, pair_draws
+from ..models.wavernn import discretized_mix_logistic_loss, raw_loss
 from ..utils.losses import (l2_loss, masked_mean_absolute_error,
                             new_scaled_crossentropy, weighted_sum_losses)
 
 __all__ = ["fold_in", "generator", "frozen_batch_stats",
            "make_forward_train_step", "make_forward_val_step",
            "make_autoregressive_train_step", "make_autoregressive_val_step",
-           "make_mine_update", "make_mine_zoo_update"]
+           "make_mine_update", "make_mine_zoo_update",
+           "make_wavernn_train_step"]
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -299,5 +302,24 @@ def make_mine_zoo_update(nets):
                                rng)
             mis.append(mi)
         return torch.stack(mis), terms
+
+    return step
+
+
+def make_wavernn_train_step(model):
+    """``step(state, batch) -> {"loss"}``, one Adam update of ``state`` (a
+    ``TrainState`` of the WaveRNN ``model``) on ``batch`` (x, y, mels) as
+    ``data.dataset.collate_vocoder`` makes it, on the model's device
+    (`etts/train/steps.py:385-414`): the teacher-forced forward in train
+    mode, whose BatchNorm moves its running statistics, then the
+    discretized-MoL loss (MOL, y floats) or the cross-entropy (RAW, y
+    int64 labels). No randomness: the step takes no seed."""
+    def step(state, batch):
+        x, y, mels = batch
+        logits = model(x, mels, train=True)
+        loss = (discretized_mix_logistic_loss(logits, y[..., None])
+                if model.mode == "MOL" else raw_loss(logits, y))
+        state.apply_gradients(_grads(loss, state.params))
+        return {"loss": loss.detach()}
 
     return step

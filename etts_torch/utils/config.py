@@ -2,7 +2,7 @@
 the port's models: the counterpart of ``ConfigManager.get_model``
 (``etts/utils/config.py:145-305``) for the AR TTS, forward TTS, WaveRNN
 and GST-Tacotron families; and ``ConfigManager``'s session directories,
-which a training driver uses, and the trained TTS model it saved there
+which a training driver uses, and the trained model it saved there
 (``ConfigManager.load_model``)."""
 from __future__ import annotations
 
@@ -100,8 +100,8 @@ class ConfigManager:
             yaml.safe_dump(self.data_config, f)
 
     def load_model(self, step: Optional[int] = None, device="cpu"):
-        """The session's TTS model (``model_kind`` "autoregressive" or
-        "forward") with the weights and BatchNorm statistics of
+        """The session's model (``model_kind`` "autoregressive", "forward"
+        or "wavernn") with the weights and BatchNorm statistics of
         ``weights_dir/ckpt-{step}.pt`` (the latest where ``step`` is None),
         as the training drivers save them, on ``device``; the counterpart
         of etts' ``ConfigManager.load_model``. Returns (model, step, the
@@ -112,10 +112,13 @@ class ConfigManager:
             step, map_location="cpu")
         if tree is None:
             raise FileNotFoundError(f"no checkpoint in {self.weights_dir}")
-        build = {"autoregressive": build_tts,
-                 "forward": build_forward}[self.model_kind]
-        model = build(self.config, default_tokenizer(
-            self.model_kind == "autoregressive").vocab_size)
+        if self.model_kind == "wavernn":
+            model = build_vocoder(self.config)
+        else:
+            build = {"autoregressive": build_tts,
+                     "forward": build_forward}[self.model_kind]
+            model = build(self.config, default_tokenizer(
+                self.model_kind == "autoregressive").vocab_size)
         model.load_state_dict(tree["model"])
         print(f"restored weights from {self.weights_dir} at step {step}")
         return (model.to(device).eval(), step,

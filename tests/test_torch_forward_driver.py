@@ -46,29 +46,15 @@ from etts_torch.models import layers as tl
 from etts_torch.models.init import init_flax
 from etts_torch.text import default_tokenizer
 from etts_torch.train_autoregressive import SEED
-from etts_torch.train_autoregressive import main as train_ar
 from etts_torch.utils.config import ConfigManager, build_forward
 from etts_torch.utils.logging import read_scalars
-from torch_parity import FWD_SMALL, ROOT, tiny_corpus, unflatten
+from torch_parity import FWD_SMALL, ROOT, r1_session, tiny_corpus, unflatten
 
 TIE = 1e-5
 FWD_CFG = dict(FWD_SMALL, max_frames=48, tts_batch_size=4,
                weights_save_frequency=2, prediction_frequency=2,
                metrics_sync_frequency=1, keep_n_weights=2,
                learning_rate_tts_schedule=[[0, 1e-3]])
-
-
-def r1_session(d, **over):
-    """A tiny corpus with a test split (its last 3 utterances) and an AR
-    model trained by the port for 2 steps at r = 1 (session "s")."""
-    tiny_corpus(d, reduction_factor_schedule=[[0, 1]], use_mine=False,
-                **over)
-    corpus = d / "corpus"
-    lines = (corpus / "train_metafile.txt").read_text().splitlines(True)
-    (corpus / "test_metafile.txt").write_text("".join(lines[-3:]))
-    train_ar(["--config", str(d), "--device", "cpu", "--session_name", "s",
-              "--max_steps", "2"])
-    return corpus
 
 
 def etts_triples(d, flags):

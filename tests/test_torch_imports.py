@@ -41,4 +41,7 @@ def test_port_imports_no_jax_flax_or_etts():
             "etts_torch.text.cmudict", "etts_torch.data.taco_audio",
             "etts_torch.utils.precision", "etts_torch.align",
             "etts_torch.align.durations", "etts_torch.extract_durations",
-            "etts_torch.train_forward"} <= set(modules)
+            "etts_torch.train_forward", "etts_torch.data.audio_io",
+            "etts_torch.data.builders", "etts_torch.preprocess_wavernn",
+            "etts_torch.train_wavernn", "etts_torch.gen_wavernn",
+            "etts_torch.make_gta"} <= set(modules)

@@ -458,6 +458,20 @@ def tiny_corpus(d: Path, n=12, mel_c=12, spk_d=SPK_DIM, seed=0, **over):
     return [f"u{i}" for i in range(n)]
 
 
+def r1_session(d: Path, **over):
+    """A tiny corpus with a test split (its last 3 utterances) and an AR
+    model trained by the port for 2 steps at r = 1 (session "s")."""
+    from etts_torch.train_autoregressive import main as train_ar
+    tiny_corpus(d, reduction_factor_schedule=[[0, 1]], use_mine=False,
+                **over)
+    corpus = d / "corpus"
+    lines = (corpus / "train_metafile.txt").read_text().splitlines(True)
+    (corpus / "test_metafile.txt").write_text("".join(lines[-3:]))
+    train_ar(["--config", str(d), "--device", "cpu", "--session_name", "s",
+              "--max_steps", "2"])
+    return corpus
+
+
 _ETTS_STEPS = {}
 
 
@@ -595,3 +609,80 @@ def taco_pair(seed=0, flat=None, **over):
     flat = taco_flat(seed, **over) if flat is None else flat
     tm = load_into(TT(**dict(TACO_TINY, **over)), flat)
     return jm, unflatten(flat), tm
+
+
+# ---------------------------------------------------------------------------
+# vocoder training parity (test_torch_wavernn_*.py, test_torch_vocoder_data)
+# ---------------------------------------------------------------------------
+
+# the audio of the tiny vocoder store: a 10-sample hop, 8 mel channels
+VOC_AUDIO = dict(sampling_rate=16000, n_fft=64, hop_length=10,
+                 win_length=40, mel_channels=8, f_min=0, f_max=None,
+                 normalizer="WaveRNN")
+# VOC_TINY's widths as wavernn_config.yaml keys, and the driver's cuts:
+# batches of 4 crops of 5 hops, a checkpoint and one test utterance
+# vocoded every 2 steps, 2 held out
+VOC_TRAIN = dict(voc_rnn_dims=16, voc_fc_dims=16, voc_compute_dims=8,
+                 voc_res_out_dims=8, voc_res_blocks=2,
+                 voc_upsample_factors=[2, 5], voc_batch_size=4,
+                 voc_checkpoint_every=2, voc_gen_at_checkpoint=1,
+                 voc_test_samples=2, voc_target=60, voc_overlap=10,
+                 metrics_sync_frequency=1,
+                 learning_rate_tts_schedule=[[0, 1e-3]])
+
+
+def voc_wav(rng, n):
+    """n samples of a gliding harmonic tone plus noise, peak 0.5."""
+    t = np.arange(n) / 16000.0
+    f0 = rng.uniform(150, 400) + 200 * t
+    phase = 2 * np.pi * np.cumsum(f0) / 16000.0
+    wav = sum(np.sin(k * phase) / k for k in range(1, 6))
+    wav = wav + 0.05 * rng.standard_normal(n)
+    return (0.5 * wav / np.abs(wav).max()).astype(np.float32)
+
+
+def voc_store(d: Path, mode="MOL", n=10, seed=0, **over):
+    """A config dir ``d`` (configs/default's wavernn_config.yaml shrunk by
+    VOC_TRAIN, ``voc_mode`` and ``over``; data_config.yaml with VOC_AUDIO,
+    logs under ``d/logs``), ``n`` seeded wavs of 200-600 samples (and one
+    of 100, too short for a window) under ``d/wavs``, and the port's
+    vocoder store of them under ``d/store``. Returns the store's path."""
+    from etts_torch.data.audio_io import save_wav
+    from etts_torch.data.builders import build_vocoder_dataset
+    rng = np.random.default_rng(seed)
+    (d / "wavs").mkdir(parents=True, exist_ok=True)
+    for i in range(n + 1):
+        length = 100 if i == n else int(rng.integers(200, 601))
+        save_wav(voc_wav(rng, length), d / "wavs" / f"w{i:02d}.wav", 16000)
+    for kind, cfg_over in (("wavernn", dict(VOC_TRAIN, voc_mode=mode,
+                                            **over)),
+                           ("data", dict(VOC_AUDIO,
+                                         log_directory=str(d / "logs")))):
+        cfg = yaml.safe_load(open(ROOT / "configs/default" /
+                                  f"{kind}_config.yaml"))
+        cfg.update(cfg_over)
+        yaml.safe_dump(cfg, open(d / f"{kind}_config.yaml", "w"))
+    cfg = {**yaml.safe_load(open(d / "data_config.yaml")),
+           **yaml.safe_load(open(d / "wavernn_config.yaml"))}
+    return Path(build_vocoder_dataset(
+        d / "wavs", d / "store", cfg, mode=mode, bits=cfg["bits"],
+        mu_law=cfg["mu_law"], njobs=2))
+
+
+def voc_train_pair(mode="MOL", seed=0):
+    """(flax WaveRNN, variables, torch WaveRNN) of VOC_TINY: the port
+    model initialised by ``init_flax`` from ``seed``, its BatchNorm
+    statistics seeded (``_seeded_init``), handed to flax through the flat
+    layout; the smoothing kernels given distinct values, as ``voc_pair``
+    does."""
+    from etts.models.wavernn import WaveRNN as JW
+    from etts_torch.convert import export_flat
+    from etts_torch.models.wavernn import WaveRNN as TW
+    tm = TW(mode=mode, **VOC_TINY)
+    _seeded_init(tm, seed)
+    with torch.no_grad():
+        for i in range(2):
+            w = getattr(tm.upsample, f"smooth_{i}").weight
+            w.uniform_(0.0, 0.3, generator=torch.Generator().manual_seed(i))
+    return (JW(mode=mode, sample_rate=100, **VOC_TINY),
+            unflatten(export_flat(tm)), tm)
