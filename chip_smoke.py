@@ -125,7 +125,19 @@ Phases (any failure exits non-zero and prints no result line):
      ``gen_wavernn``; ``make_gta`` on phase 11's r = 1 session (card
      against CPU) and ``train_wavernn --gta``; two runs under
      deterministic algorithms in processes of their own, held bit for
-     bit.
+     bit;
+  13. the TTS stores and GST-Tacotron's training (taco_train_phase): 48
+     seeded wavs in the LJSpeech layout through ``python -m
+     etts_torch.create_dataset`` and ``build_tacotron_dataset``, card
+     against CPU; ``train_autoregressive`` a few steps on the AR store;
+     one full-width Tacotron train step card against CPU (float64 at the
+     FT_* bars; float32 on the card and the CPU against the card's
+     float64 within TT_F32_GRAD, its TF32 control rejected) and its split;
+     ``python -m etts_torch.train_tacotron`` at configs/default's full
+     width (batch 8, r = 2) for 20 steps, resumed to 30 (the batches
+     against the permutation stream); the last export through
+     TacotronSynthesizer (launches read around it: none); two runs under
+     deterministic algorithms, one cut and resumed, held bit for bit.
 
 The port computes in float32 without TF32 (``utils/precision.py``), as
 every entry point sets it.
@@ -295,6 +307,36 @@ SAMPLE_MARGIN_TRAINED = 0.03
 # worst gradient's ||d|| / ||g|| (TRAIN_GRAD_ATOL) within VT_F32_GRAD,
 # and the card's step with TF32 on (the control) past it
 VT_F32_GRAD = 2e-2
+# phase 13: the TTS stores and GST-Tacotron's training flow. TT_UTTS seeded
+# wavs of TT_SECONDS in the LJSpeech layout, TT_TEST of them the AR store's
+# test split (n_test, from 100: the corpus holds 48); both stores card
+# against CPU: the metafiles and train.txt byte for byte, the AR mels
+# within AR_MEL_TOL (tests/test_torch_vocoder_data.py's MEL_TOL) and the
+# Tacotron spectrograms within TACO_STORE_TOL (max |d|, values in [-4, 4]
+# and [0, 1]); train_autoregressive TT_AR_STEPS steps on the AR store; one
+# Tacotron train step card against CPU on TT_CPU_ROWS utterances at the
+# FT_* bars in float64; the driver's steps (a run, then resumed) and its
+# checkpoint cadence (checkpoint_interval, from 1000); the deterministic
+# runs' steps (a run, then resumed, against one run)
+TT_UTTS = 48
+TT_SECONDS = (1.5, 4.0)
+TT_TEST = 8
+AR_MEL_TOL = 1e-5
+TACO_STORE_TOL = 1e-5
+TT_AR_STEPS = 5
+TT_CPU_ROWS = 2
+# the float32 step on TT_CPU_ROWS utterances against the card's float64
+# step, the card's and the CPU's: the worst gradient's ||d|| / ||g||
+# (TRAIN_GRAD_ATOL) within TT_F32_GRAD, and the card's step with TF32 on
+# (the control) past it. Read on an H100 before the bar was set: card
+# 1.23e-3, CPU 3.49e-6, control 1.79e-1
+TT_F32_GRAD = 2e-2
+TT_STEPS = (20, 30)
+TT_CKPT = 10
+TT_DET_STEPS = (4, 8)
+TT_WORDS = ("the quick brown fox jumps over a lazy dog while birds fly "
+            "south in winter and children play in the park as rain falls "
+            "on the roof of an old house near the river").split()
 
 
 def card() -> str:
@@ -1397,10 +1439,11 @@ def forward_train_phase(cl, voc, failures):
          the CPU on FT_CPU_ROWS triples, dropout 0, the same init: in
          float64 at FT_LOSS_TOL, FT_GRAD_* and FT_STATS_TOL, and in float32
          at phase 9's TRAIN_* bars and FT_STATS_TOL, each float32 side also
-         read against the CPU's float64 step (the card's float32 attention
-         at 1280 frames rounds some gradients above FT_GRAD_RTOL, where the
-         CPU's does not), and once more with the attention's softmax in
-         float64 (printed, not a check); the step's split at
+         held against the CPU's float64 step at FT_GRAD_RTOL (the
+         attention's renormalised softmax keeps ``wk``'s nearly cancelling
+         gradient there), and again with the attention's softmax in
+         float64 on the card and plain float32 ``torch.softmax`` on both
+         devices (printed, not checks); the step's split at
          ``tts_batch_size`` 16;
       4. ``train_forward`` to FT_STEPS[0] steps, then resumed to
          FT_STEPS[1], against one run to FT_STEPS[1]: the restore, the
@@ -1570,43 +1613,57 @@ def forward_train_phase(cl, voc, failures):
                 f"|g| {worst[0]:.2e} (tol {rtol}); BatchNorm statistics max "
                 f"|d| {d_stats:.2e} (tol {FT_STATS_TOL}); first step "
                 f"{s_g:.3f} s on the card, {s_c:.3f} s on the CPU")
+        vs64 = 0.0
         if dt == torch.float32:
             # each side against the CPU's float64 step: the card's float32
             # rounding beside the CPU's
-            line += "; worst against the CPU's float64 step: " + ", ".join(
-                "{} {:.2e}".format(w, worst_grad(
-                    state.names, [g.double() for g in runs[w, dt][1]], exact,
-                    atol)[0]) for w in ("cuda", "cpu"))
+            vs = {w: worst_grad(state.names,
+                                [g.double() for g in runs[w, dt][1]], exact,
+                                atol)[0] for w in ("cuda", "cpu")}
+            vs64 = max(vs.values())
+            line += (f"; worst against the CPU's float64 step (tol "
+                     f"{FT_GRAD_RTOL}): " + ", ".join(
+                         f"{w} {e:.2e}" for w, e in vs.items()))
         say(cl, line)
         if not (d_loss <= loss_tol and worst[0] <= rtol
-                and d_stats <= FT_STATS_TOL):
+                and d_stats <= FT_STATS_TOL and vs64 <= FT_GRAD_RTOL):
             failures.append(f"forward train step, card vs CPU ({dt})")
-    # the card's float32 step again, the attention's softmax in float64
-    # (models/layers.py::attention), against the CPU's float64 step: where
-    # the card's float32 gradients lose their digits (ROADMAP Queue C)
+    # the float32 step again with other softmaxes in the attention
+    # (models/layers.py::attention), against the CPU's float64 step: in
+    # float64 on the card (what is left of the float32 rounding once the
+    # softmax is exact), and float32 torch.softmax without the attention's
+    # renormalisation on both devices (the attention before it)
     from etts_torch.models import layers
 
-    def softmax64(q, k, v, mask=None):
-        logits = q @ k.transpose(-1, -2) / (k.shape[-1] ** 0.5)
-        if mask is not None:
-            logits = logits + mask * -1e9
-        w = torch.softmax(logits.double(), dim=-1).float()
-        return w @ v, w
-    attention, layers.attention = layers.attention, softmax64
-    try:
-        model = build_forward(cf, vocab, dropout_rate=0.0)
-        init_flax(model, torch.Generator().manual_seed(
-            train_autoregressive.SEED)).to("cuda")
-        state = grad_capture(model, cf["learning_rate_tts_schedule"])
-        make_forward_train_step(model, cap)(
-            state, train_forward.to_device(fhost, "cuda"), 0)
-    finally:
-        layers.attention = attention
-    say(cl, "forward train step on the card, float32 but the attention's "
-            "softmax in float64: worst gradient against the CPU's float64 "
-            "step {:.2e} (not a check)".format(worst_grad(
+    def softmax_as(mode):
+        def attend(q, k, v, mask=None):
+            logits = q @ k.transpose(-1, -2) / (k.shape[-1] ** 0.5)
+            if mask is not None:
+                logits = logits + mask * -1e9
+            w = (torch.softmax(logits.double(), dim=-1).float()
+                 if mode == "float64" else torch.softmax(logits, dim=-1))
+            return w @ v, w
+        return attend
+    reads = []
+    for mode, where in (("float64", "cuda"), ("plain float32", "cuda"),
+                        ("plain float32", "cpu")):
+        attention, layers.attention = layers.attention, softmax_as(mode)
+        try:
+            model = build_forward(cf, vocab, dropout_rate=0.0)
+            init_flax(model, torch.Generator().manual_seed(
+                train_autoregressive.SEED)).to(where)
+            state = grad_capture(model, cf["learning_rate_tts_schedule"])
+            make_forward_train_step(model, cap)(
+                state, train_forward.to_device(fhost, where), 0)
+        finally:
+            layers.attention = attention
+        reads.append("{} softmax on the {} {:.2e}".format(
+            mode, "card" if where == "cuda" else "CPU", worst_grad(
                 state.names, [g.double() for g in state.grads], exact,
                 TRAIN_GRAD_ATOL)[0]))
+    say(cl, "forward train step in float32, the attention's softmax "
+            "replaced: worst gradient against the CPU's float64 step: "
+            + ", ".join(reads) + " (not a check)")
     model = build_forward(cf, vocab)
     init_flax(model, torch.Generator().manual_seed(0)).to("cuda")
     state = TrainState(model, cf["learning_rate_tts_schedule"])
@@ -1833,26 +1890,51 @@ def _vocoder_step_check(cl, cdir, store, failures):
                             f"{c['voc_batch_size']} crops (draw {seed})")
 
 
-def _deterministic_runs(cdir, store):
-    """Start VT_DET_STEPS-step ``train_wavernn`` runs, sessions "det_a"
-    and "det_b", each in a process of its own under
-    ``torch.use_deterministic_algorithms(True)``, cuDNN deterministic and
-    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (read when cuBLAS starts, so set
-    before the process touches the card). Returns the processes."""
+def _deterministic_process(module, argv):
+    """Start ``etts_torch.{module}``'s ``main(argv)`` in a process of its
+    own under ``torch.use_deterministic_algorithms(True)``, cuDNN
+    deterministic and ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (read when
+    cuBLAS starts, so set before the process touches the card)."""
     import os
     code = ("import sys, torch\n"
             "torch.use_deterministic_algorithms(True)\n"
             "torch.backends.cudnn.deterministic = True\n"
             "torch.backends.cudnn.benchmark = False\n"
-            "from etts_torch.train_wavernn import main\n"
+            f"from etts_torch.{module} import main\n"
             "main(sys.argv[1:])\n")
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
                PYTHONPATH=str(ROOT))
-    return [subprocess.Popen(
-        [sys.executable, "-c", code, "--config", str(cdir), "--data",
-         str(store), "--session_name", name, "--max_steps",
-         str(VT_DET_STEPS)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for name in ("det_a", "det_b")]
+    return subprocess.Popen([sys.executable, "-c", code, *map(str, argv)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _deterministic_runs(cdir, store):
+    """Start VT_DET_STEPS-step ``train_wavernn`` runs, sessions "det_a"
+    and "det_b", each in a process of its own
+    (``_deterministic_process``). Returns the processes."""
+    return [_deterministic_process("train_wavernn", [
+        "--config", cdir, "--data", store, "--session_name", name,
+        "--max_steps", VT_DET_STEPS]) for name in ("det_a", "det_b")]
+
+
+def _refused_or_crashed(procs) -> tuple:
+    """Wait for ``procs``: (the ops whose error is torch's RuntimeError
+    "<op> does not have a deterministic implementation", the other
+    failures' return codes and error tails)."""
+    refused, crashed = [], []
+    for p in procs:
+        _, err = p.communicate(timeout=900)
+        if p.returncode == 0:
+            continue
+        last = (err.strip().splitlines() or [""])[-1]
+        m = re.match(r"RuntimeError: (\S+) does not have a deterministic "
+                     r"implementation", last)
+        if m:
+            refused.append(m.group(1))
+        else:
+            crashed.append(f"return code {p.returncode}: {err[-2000:]}")
+    return refused, crashed
 
 
 def _deterministic_outcome(cl, cdir, cm, det, failures):
@@ -1865,18 +1947,7 @@ def _deterministic_outcome(cl, cdir, cm, det, failures):
     return goes to ``failures``."""
     import torch
     from etts_torch.utils.config import ConfigManager
-    refused, crashed = [], []
-    for p in det:
-        _, err = p.communicate(timeout=900)
-        if p.returncode == 0:
-            continue
-        last = (err.strip().splitlines() or [""])[-1]
-        m = re.match(r"RuntimeError: (\S+) does not have a deterministic "
-                     r"implementation", last)
-        if m:
-            refused.append(m.group(1))
-        else:
-            crashed.append(f"return code {p.returncode}: {err[-2000:]}")
+    refused, crashed = _refused_or_crashed(det)
     if crashed:
         say(cl, "deterministic vocoder runs failed: " + " | ".join(crashed))
         failures.append("deterministic vocoder runs failed")
@@ -2485,6 +2556,413 @@ def tacotron_phase(cl, wav_ref, failures):
     if not (np.isfinite(wav0).all() and wav0.shape == wav.shape):
         failures.append("tacotron without a reference")
     return {"tacotron": ran}
+
+
+def _taco_corpus(root, n, seed=13):
+    """``n`` seeded wavs (``ref_wav``, TT_SECONDS long) in the LJSpeech
+    layout under ``root``: ``wavs/`` and ``metadata.csv`` (``id|text|text``,
+    seeded sentences of 4-14 words of TT_WORDS). Returns the seconds of
+    audio."""
+    import numpy as np
+    from etts_torch.data.audio_io import save_wav
+    rng = np.random.default_rng(seed)
+    (root / "wavs").mkdir(parents=True)
+    seconds = rng.uniform(*TT_SECONDS, n)
+    lines = []
+    for i, sec in enumerate(seconds):
+        save_wav(ref_wav(200 + i, float(sec)), root / "wavs" / f"lj{i:03d}.wav",
+                 16000)
+        text = " ".join(rng.choice(TT_WORDS, int(rng.integers(4, 15))))
+        text = text[0].upper() + text[1:] + "."
+        lines.append(f"lj{i:03d}|{text}|{text}\n")
+    (root / "metadata.csv").write_text("".join(lines))
+    return float(seconds.sum())
+
+
+def _max_rel(a, b) -> float:
+    """max |a - b| over max |b|, float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _taco_step_check(cl, cdir, failures):
+    """One full-width Tacotron train step (``make_tacotron_train_step``,
+    the teacher-forced forward with zoneout's masks and BatchNorm on batch
+    statistics, the loss, ``torch.autograd.grad``), card against CPU on
+    the store's first TT_CPU_ROWS utterances from the same init
+    (``init_flax``, seed 0) and uniforms (step 0's, drawn on the CPU): in
+    float64 the loss, each gradient and each BatchNorm statistic after the
+    step at the FT_* bars (the statistics' max |d| over their max
+    |value|); then the float32 step on the card and on the CPU, and on the
+    card with TF32 on (the control), each against the card's float64 step:
+    the worst gradient within TT_F32_GRAD on the card and the CPU, the
+    control's past it."""
+    import numpy as np
+    import torch
+    from etts_torch.models.init import init_flax
+    from etts_torch.train.steps import fold_in, make_tacotron_train_step
+    from etts_torch.train_tacotron import (INIT_SEED, SEED, load_taco_metadata,
+                                           taco_batches, to_device)
+    rng = fold_in(SEED, 0)
+    from etts_torch.utils.config import ConfigManager, build_tacotron
+    from etts_torch.utils.precision import pin_float32
+    cm = ConfigManager(cdir, "tacotron", "phase13")
+    c = cm.config
+    rows = load_taco_metadata(cm.train_datadir)[:TT_CPU_ROWS]
+    host, _ = next(taco_batches(rows, cm.train_datadir, TT_CPU_ROWS,
+                                c["outputs_per_step"], [c["cleaners"]],
+                                np.random.default_rng(0)))
+    def step(dt, where, tf32=False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            model = build_tacotron(c)
+            init_flax(model, torch.Generator().manual_seed(INIT_SEED)).to(
+                where, dt)
+            state = grad_capture(model, [[0, 1e-3]])
+            batch = tuple(x if x.dtype == torch.int64 else x.to(dt)
+                          for x in to_device(host, where))
+            t0 = time.perf_counter()
+            met = make_tacotron_train_step(model)(state, batch, rng)
+            stats = {k: v.cpu() for k, v in model.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            return (float(met["loss"]), [g.double() for g in state.grads],
+                    stats, time.perf_counter() - t0, state.names)
+        finally:
+            pin_float32()
+
+    f64 = {w: step(torch.float64, w) for w in ("cuda", "cpu")}
+    (l_g, g_g, st_g, s_g, names), (l_c, g_c, st_c, s_c, _) = (
+        f64["cuda"], f64["cpu"])
+    d_loss = abs(l_g - l_c) / abs(l_c)
+    worst = worst_grad(names, g_g, g_c, FT_GRAD_ATOL)
+    d_stats = max(_max_rel(st_g[k], st_c[k]) for k in st_c)
+    say(cl, f"tacotron train step, card vs CPU (float64, {len(names)} "
+            f"parameters, ids {tuple(host[0].shape)}, mels "
+            f"{tuple(host[2].shape)}, linears {tuple(host[3].shape)}): "
+            f"loss {l_g:.9f} vs {l_c:.9f} (relative {d_loss:.2e}, tol "
+            f"{FT_LOSS_TOL}); worst gradient {worst[1]}: (|d| - "
+            f"{FT_GRAD_ATOL}) / |g| {worst[0]:.2e} (tol {FT_GRAD_RTOL}); "
+            f"{len(st_c)} BatchNorm statistics, max |d| / max |stat| "
+            f"{d_stats:.2e} (tol {FT_STATS_TOL}); first step {s_g:.3f} s on "
+            f"the card, {s_c:.3f} s on the CPU")
+    if not (d_loss <= FT_LOSS_TOL and worst[0] <= FT_GRAD_RTOL
+            and d_stats <= FT_STATS_TOL):
+        failures.append("tacotron train step, card vs CPU (float64)")
+    worst, line = {}, []
+    for where, tf32 in (("cuda", False), ("cpu", False), ("cuda", True)):
+        l32, g32, st32, _, _ = step(torch.float32, where, tf32)
+        name = where + (" TF32 (control)" if tf32 else "")
+        w32 = worst[name] = worst_grad(names, g32, g_g, TRAIN_GRAD_ATOL)
+        line.append(f"{name}: loss relative {abs(l32 - l_g) / abs(l_g):.2e}"
+                    f", worst gradient {w32[1]} {w32[0]:.2e}, statistics "
+                    f"{max(_max_rel(st32[k], st_g[k]) for k in st_g):.2e}")
+        if not math.isfinite(l32):
+            failures.append(f"tacotron float32 train step ({name}): loss")
+    say(cl, "tacotron float32 train step against the card's float64 step "
+            f"(gradients (|d| - {TRAIN_GRAD_ATOL}) / |g|, tol {TT_F32_GRAD}; "
+            "the control past it): " + "; ".join(line))
+    if not (worst["cuda"][0] <= TT_F32_GRAD
+            and worst["cpu"][0] <= TT_F32_GRAD
+            and worst["cuda TF32 (control)"][0] > TT_F32_GRAD):
+        failures.append("tacotron float32 train step against float64")
+
+
+def taco_train_phase(cl, wav_ref, failures):
+    """Phase 13: the TTS stores and GST-Tacotron's training flow, each
+    entry point's ``main`` run in this process:
+      1. TT_UTTS seeded wavs of TT_SECONDS in the LJSpeech layout
+         (``_taco_corpus``; LJSpeech's utterances reach 10 s);
+      2. ``create_dataset --phonemizer_backend rule`` on the card and on
+         the CPU (n_test TT_TEST): both metafiles and ``phonemes.npy``
+         equal, the mels within AR_MEL_TOL; ``train_autoregressive``
+         (configs/default's model at full width, batch 8) TT_AR_STEPS
+         steps on the card's store with seeded ``spk_embeds/`` beside it:
+         finite losses;
+      3. ``build_tacotron_dataset`` on the card and on the CPU:
+         ``train.txt`` equal, the spectrograms within TACO_STORE_TOL;
+      4. ``train_tacotron`` at configs/default's full width (batch 8, r =
+         2; ``checkpoint_interval`` TT_CKPT) for TT_STEPS[0] steps, then
+         resumed to TT_STEPS[1]: the restore, the rows of every step
+         against the permutation stream replayed, the step time (median of
+         steps 5 to TT_STEPS[0] - 1), target frames a second, own peak
+         memory, the losses, the BatchNorm statistics moved;
+      5. the step-TT_STEPS[1] checkpoint's export (``export_flat``)
+         through ``TacotronSynthesizer``: SENTENCE and the reference wav's
+         mel -> a wav, 1000 decode steps and 60 Griffin-Lim iterations,
+         timed, the launches read around it (none);
+      6. the step split (``step_split``) at the driver's first batch;
+      7. two runs under deterministic algorithms (``_deterministic_process``):
+         TT_DET_STEPS[0] steps resumed to TT_DET_STEPS[1], against
+         TT_DET_STEPS[1] steps, each in a process of its own, started here
+         and read at the end: weights, statistics and Adam state bit for
+         bit (an op that refuses deterministic mode is named instead);
+      8. meanwhile one train step card against CPU (``_taco_step_check``).
+    Failed checks go to ``failures``; returns {path: read_launches()} for
+    "taco_train" and "taco_export"."""
+    import contextlib
+    import io
+    import shutil
+    import statistics
+    import numpy as np
+    import torch
+    import yaml
+    from etts_torch import create_dataset, train_autoregressive, train_tacotron
+    from etts_torch.api import TacotronSynthesizer
+    from etts_torch.convert import export_flat
+    from etts_torch.data.taco_audio import taco_linear_and_mel
+    from etts_torch.data.taco_builders import build_tacotron_dataset
+    from etts_torch.train.steps import make_tacotron_train_step
+    from etts_torch.utils.config import ConfigManager
+    from etts_torch.utils.logging import read_scalars
+    root = ROOT / "build" / "phase13"
+    shutil.rmtree(root, ignore_errors=True)
+    corpus = root / "corpus"
+    paths, det = {}, []
+    data0 = yaml.safe_load((CONFIG / "data_config.yaml").read_text())
+
+    def config_dir(name, models, **data):
+        d = root / name
+        d.mkdir(parents=True)
+        (d / "data_config.yaml").write_text(yaml.safe_dump(dict(
+            data0, data_directory=str(corpus), n_test=TT_TEST,
+            log_directory=str(root / "logs"), **data)))
+        for kind, over in models.items():
+            cfg = yaml.safe_load((CONFIG / f"{kind}_config.yaml").read_text())
+            (d / f"{kind}_config.yaml").write_text(yaml.safe_dump(
+                dict(cfg, **over)))
+        return d
+
+    try:
+        # 1. the corpus
+        audio_s = _taco_corpus(corpus, TT_UTTS)
+
+        # 2. the AR store on the card and on the CPU; a few AR steps on it
+        stores, ar_dirs = {}, {}
+        for where in ("cuda", "cpu"):
+            stores[where] = root / f"ar_store_{where}"
+            d = ar_dirs[where] = config_dir(
+                f"ar_{where}", {"autoregressive": {}},
+                train_data_directory=str(stores[where]))
+            secs, out, _ = run_main(create_dataset.main, [
+                "--config", str(d), "--phonemizer_backend", "rule",
+                "--njobs", "8", "--device", where])
+            say(cl, f"create_dataset on the {where}: {TT_UTTS} wavs "
+                    f"({audio_s:.1f} s of audio) in {secs:.2f} s")
+            if yaml.safe_load((d / "data_config.yaml").read_text()).get(
+                    "phonemizer_backend") != "rule":
+                failures.append("create_dataset: backend not recorded")
+        a, b = stores["cuda"], stores["cpu"]
+        same = all((a / f).read_bytes() == (b / f).read_bytes() for f in (
+            "train_metafile.txt", "test_metafile.txt", "phonemes.npy"))
+        mels = sorted(p.name for p in (b / "mels").glob("*.npy"))
+        d_mel = max(float(np.abs(np.load(a / "mels" / m)
+                                 - np.load(b / "mels" / m)).max())
+                    for m in mels)
+        n_train = len((a / "train_metafile.txt").read_text().splitlines())
+        say(cl, f"the AR store, card vs CPU: metafiles and phonemes.npy "
+                f"equal {same} ({n_train} train, {TT_TEST} test rows); "
+                f"{len(mels)} mels, max |d| {d_mel:.3e} (tol {AR_MEL_TOL})")
+        if not (same and len(mels) == TT_UTTS and d_mel <= AR_MEL_TOL
+                and n_train == TT_UTTS - TT_TEST - 1):
+            failures.append("the AR store, card vs CPU")
+        (a / "spk_embeds").mkdir()
+        srng = np.random.default_rng(14)
+        for m in mels:
+            v = srng.standard_normal(256).astype(np.float32)
+            np.save(a / "spk_embeds" / m, v / np.linalg.norm(v))
+        secs, out, _ = run_main(train_autoregressive.main, [
+            "--config", str(ar_dirs["cuda"]), "--session_name", "phase13",
+            "--max_steps", str(TT_AR_STEPS)])
+        ar_losses = read_scalars(ConfigManager(
+            ar_dirs["cuda"], "autoregressive", "phase13").log_dir).get(
+                "train/loss", {})
+        say(cl, f"train_autoregressive on the store, {TT_AR_STEPS} steps: "
+                f"{secs:.1f} s; losses {ar_losses}")
+        if not (ar_losses and all(math.isfinite(v)
+                                  for v in ar_losses.values())):
+            failures.append(f"train_autoregressive on the store: "
+                            f"{ar_losses}")
+
+        # 3. the Tacotron store on the card and on the CPU
+        taco_cfg = yaml.safe_load((CONFIG / "tacotron_config.yaml")
+                                  .read_text())
+        tstores = {}
+        for where in ("cuda", "cpu"):
+            tstores[where] = root / f"taco_store_{where}"
+            t0 = time.perf_counter()
+            build_tacotron_dataset(
+                {**taco_cfg, **data0, "data_directory": str(corpus)},
+                out_dir=tstores[where], njobs=8, device=where)
+            say(cl, f"build_tacotron_dataset on the {where}: "
+                    f"{time.perf_counter() - t0:.2f} s")
+        a, b = tstores["cuda"], tstores["cpu"]
+        same = (a / "train.txt").read_bytes() == (b / "train.txt").read_bytes()
+        files = sorted(p.name for p in b.glob("taco-*.npy"))
+        d_spec = max(float(np.abs(np.load(a / f) - np.load(b / f)).max())
+                     for f in files)
+        rows = train_tacotron.load_taco_metadata(a)
+        frames = [int(r[2]) for r in rows]
+        say(cl, f"the Tacotron store, card vs CPU: train.txt equal {same} "
+                f"({len(rows)} rows, {min(frames)}-{max(frames)} frames); "
+                f"{len(files)} spectrograms, max |d| {d_spec:.3e} (tol "
+                f"{TACO_STORE_TOL})")
+        if not (same and len(rows) == TT_UTTS and len(files) == 2 * TT_UTTS
+                and d_spec <= TACO_STORE_TOL):
+            failures.append("the Tacotron store, card vs CPU")
+
+        # 4. the driver: a run, then resumed; the rows each step read
+        cdir = config_dir("taco", {"tacotron": {
+            "checkpoint_interval": TT_CKPT}}, train_data_directory=str(a))
+        cm = ConfigManager(cdir, "tacotron", "phase13")
+        c = cm.config
+        seen, outs, bases = [], [], {}
+        batches0 = train_tacotron.taco_batches
+
+        def recorded(*args, **kw):
+            for batch, idx in batches0(*args, **kw):
+                seen.append(list(idx))
+                yield batch, idx
+        train_tacotron.taco_batches = recorded
+        try:
+            zero_launches()
+            for steps in TT_STEPS:
+                secs, out, bases[steps - 1] = run_main(train_tacotron.main, [
+                    "--config", str(cdir), "--session_name", "phase13",
+                    "--max_steps", str(steps)])
+                outs.append(out)
+                say(cl, f"train_tacotron --max_steps {steps}: {secs:.1f} s; "
+                        + " | ".join(out.strip().splitlines()[-3:]))
+            paths["taco_train"] = read_launches()
+        finally:
+            train_tacotron.taco_batches = batches0
+        if f"restored weights at step {TT_STEPS[0]}" not in outs[1]:
+            failures.append(f"train_tacotron: no restore at {TT_STEPS[0]}")
+        perm, bs = np.random.default_rng(train_tacotron.SEED), c["batch_size"]
+        want = []
+        while len(want) < TT_STEPS[1]:
+            order = perm.permutation(len(rows))
+            want += [list(order[i:i + bs])
+                     for i in range(0, len(rows) - bs + 1, bs)]
+        stream_ok = seen == want[:TT_STEPS[1]]
+        sc = read_scalars(cm.log_dir)
+        span = range(5, TT_STEPS[0])
+        step_ms = [sc["time/step_ms"][i] for i in span]
+        tframes = sum(sc["meta/target_frames"][i] for i in span)
+        peak = sc.get("meta/max_memory_allocated", {})
+        losses = {k: dict(sorted(sc[f"train/{k}"].items())) for k in
+                  ("loss", "mel_loss", "linear_loss", "ref_enc_loss")}
+        with contextlib.redirect_stdout(io.StringIO()):
+            trained, step, _ = cm.load_model()
+        flat = export_flat(trained)
+        stats = {k: v for k, v in flat.items() if k.startswith("batch_stats")}
+        moved = sum(not (np.all(v == 0) or np.all(v == 1))
+                    for v in stats.values())
+        ckpts = sorted(int(p.stem.split("-")[1])
+                       for p in cm.weights_dir.glob("ckpt-*.pt"))
+        aligns = sorted(p.name for p in cm.log_dir.glob("train_alignment_*"))
+        say(cl, f"tacotron training (configs/default, batch {bs}, r = "
+                f"{c['outputs_per_step']}), steps 5-{TT_STEPS[0] - 1} (host "
+                f"clock, synchronised): median {statistics.median(step_ms):.2f}"
+                f" ms/step (min {min(step_ms):.2f}, max {max(step_ms):.2f}); "
+                f"{tframes / sum(step_ms) * 1e3:.0f} target frames/s; peak "
+                "memory of the run "
+                + ", ".join(f"{(v - bases[k]) / 2**30:.3f} GiB (run to "
+                            f"{k + 1})" for k, v in sorted(peak.items()))
+                + f"; the rows of steps 0-{TT_STEPS[1] - 1} (the resumed "
+                f"run's too) the permutation stream's: {stream_ok}; losses "
+                f"{losses}; checkpoints {ckpts}; alignments {aligns}; "
+                f"{moved} of {len(stats)} BatchNorm statistics moved; "
+                f"launches {paths['taco_train']}")
+        want_losses = sorted({k for k in range(TT_STEPS[1])
+                              if k % c["metrics_sync_frequency"] == 0}
+                             | {n - 1 for n in TT_STEPS})
+        if not (stream_ok and step == TT_STEPS[1]
+                and sorted(losses["loss"]) == want_losses
+                and all(math.isfinite(v) for v in losses["loss"].values())
+                and ckpts == list(range(TT_CKPT, TT_STEPS[1] + 1, TT_CKPT))
+                and len(aligns) == len(ckpts) and stats
+                and moved == len(stats)
+                and sorted(peak) == [n - 1 for n in TT_STEPS]
+                and not any(paths["taco_train"].values())):
+            failures.append("train_tacotron")
+
+        # 5. the trained export served
+        taco = TacotronSynthesizer(cdir, flat, "cuda")
+        _, ref = taco_linear_and_mel(torch.from_numpy(wav_ref).cuda(), c)
+        taco.synthesize(SENTENCE, ref)
+        zero_launches()
+        e2e, (wav, align) = _sync_ms(lambda: taco.synthesize(SENTENCE, ref))
+        paths["taco_export"] = ran = read_launches()
+        wav_s = wav.shape[0] / c["sampling_rate"]
+        say(cl, f"the step-{step} export through TacotronSynthesizer: "
+                f"SENTENCE and the reference mel ({ref.shape[0]} frames) -> "
+                f"{wav.shape[0]} samples ({wav_s:.3f} s) in {e2e:.1f} ms, RTF "
+                f"{e2e / 1e3 / wav_s:.4f}; alignment {align.shape}; launches "
+                f"{ran}")
+        if any(ran.values()) or not np.isfinite(wav).all():
+            failures.append(f"the trained Tacotron export: launches {ran}")
+        del taco
+
+        # 6. the step's split at the driver's first batch
+        from etts_torch.models.init import init_flax
+        from etts_torch.utils.config import build_tacotron
+        model = build_tacotron(c)
+        init_flax(model, torch.Generator().manual_seed(0)).to("cuda")
+        state = train_tacotron.train_state(model, c)
+        tstep = make_tacotron_train_step(model)
+        host, _ = next(train_tacotron.taco_batches(
+            rows, a, bs, model.r, [c["cleaners"]], np.random.default_rng(42)))
+        batch = train_tacotron.to_device(host, "cuda")
+        step_split(cl, f"tacotron train step (ids {tuple(host[0].shape)}, "
+                       f"mels {tuple(host[2].shape)})", state,
+                   lambda: tstep(state, batch, 0), reps=3, prof_steps=1)
+        del model, state, batch
+
+        # 7. the deterministic runs, in processes of their own; 8. the step
+        # card against CPU meanwhile
+        run_det = lambda name, n: _deterministic_process("train_tacotron", [
+            "--config", cdir, "--session_name", name, "--max_steps", n])
+        det = [run_det("det_cut", TT_DET_STEPS[0]),
+               run_det("det_one", TT_DET_STEPS[1])]
+        _taco_step_check(cl, cdir, failures)
+        refused, crashed = _refused_or_crashed(det[:1])
+        if not (refused or crashed):
+            det[0] = run_det("det_cut", TT_DET_STEPS[1])
+            refused, crashed = _refused_or_crashed(det)
+        if crashed:
+            say(cl, "deterministic tacotron runs failed: "
+                    + " | ".join(crashed))
+            failures.append("deterministic tacotron runs failed")
+        elif refused:
+            say(cl, "deterministic tacotron runs: ops without a "
+                    "deterministic implementation on the card: "
+                    f"{sorted(set(refused))}")
+        else:
+            x, y = (torch.load(ConfigManager(cdir, "tacotron", n).weights_dir
+                               / f"ckpt-{TT_DET_STEPS[1]}.pt",
+                               map_location="cpu", weights_only=True)
+                    for n in ("det_cut", "det_one"))
+            opt = lambda o: [t for s in o["state"].values()
+                             for t in s.values()]
+            bit_equal = all(torch.equal(x["model"][k], y["model"][k])
+                            for k in y["model"]) and all(
+                torch.equal(p, q) for p, q in zip(opt(x["optimizer"]),
+                                                  opt(y["optimizer"])))
+            say(cl, f"train_tacotron under torch.use_deterministic_algorithms"
+                    f"(True), cuDNN deterministic, CUBLAS_WORKSPACE_CONFIG="
+                    f":4096:8, each run in a process of its own: "
+                    f"{TT_DET_STEPS[0]} steps resumed to {TT_DET_STEPS[1]} "
+                    f"against {TT_DET_STEPS[1]}: weights, statistics and Adam "
+                    f"state bit-equal {bit_equal}")
+            if not bit_equal:
+                failures.append("deterministic tacotron runs differ")
+    finally:
+        for p in det:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return paths
 
 
 def main() -> int:
@@ -3104,6 +3582,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths |= vocoder_train_phase(cl, voc, failures)
     say(cl, f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. the TTS stores, GST-Tacotron's training, its export served --
+    t0 = time.perf_counter()
+    paths |= taco_train_phase(cl, wav_ref, failures)
+    say(cl, f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "fused_decode", "route": "cuda",

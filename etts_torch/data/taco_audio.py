@@ -1,8 +1,8 @@
 """GST-Tacotron's audio chain (port of ``etts/data/taco_builders.py:23-52``):
 a waveform's linear and mel spectrograms in Tacotron's [0, 1] dB
 convention (pre-emphasis 0.97, dB with a reference level of 20), and the
-endpoint that trims synthesized silence. The dataset builder waits for the
-training half of the Tacotron port."""
+endpoint that trims synthesized silence. ``data/taco_builders.py`` builds
+the training store from them."""
 from __future__ import annotations
 
 import numpy as np

@@ -83,12 +83,37 @@ def batch_norm(bn, x, train: bool, momentum: float = BN_MOMENTUM):
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
+class _RenormSoftmax(torch.autograd.Function):
+    """The softmax over the last axis, its rows divided once more by their
+    sums taken in float64; the backward is the softmax's own, on those
+    rows.
+
+    In the decoder's self-attention at 1280 frames the gradient of ``wk``
+    nearly cancels, and what is left of it depends on how exactly each
+    row of weights sums to one: against the float64 step, the float32
+    gradient lost 5.3e-4 through CUDA's ``torch.softmax`` and 1.9e-5
+    through the CPU's; renormalised, 1.2e-5 on the card and 1.4e-5 on the
+    CPU (H100, ``chip_smoke.py`` phase 11)."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        w = torch.softmax(logits, -1)
+        w.div_(w.sum(-1, keepdim=True, dtype=torch.float64).to(w.dtype))
+        ctx.save_for_backward(w)
+        return w
+
+    @staticmethod
+    def backward(ctx, grad):
+        w, = ctx.saved_tensors
+        return torch._softmax_backward_data(grad, w, -1, grad.dtype)
+
+
 def attention(q, k, v, mask=None):
     """q (..., tq, d), k/v (..., tk, d); mask broadcastable, 1 = masked."""
     logits = q @ k.transpose(-1, -2) / (k.shape[-1] ** 0.5)
     if mask is not None:
         logits = logits + mask * -1e9
-    w = torch.softmax(logits, dim=-1)
+    w = _RenormSoftmax.apply(logits)
     return w @ v, w
 
 

@@ -1,31 +1,37 @@
-"""GST-Tacotron (port of ``etts/models/tacotron.py``), in inference mode as
-``Tacotron.generate`` runs it: CBHG encoder, reference encoder and
-multi-head style attention over the tanh'd style tokens, a Bahdanau
-attention GRU and two zoneout LSTMs decoding r frames a step, the post
-CBHG and the linear-spectrogram head.
+"""GST-Tacotron (port of ``etts/models/tacotron.py``): CBHG encoder,
+reference encoder and multi-head style attention over the tanh'd style
+tokens, a Bahdanau attention GRU and two zoneout LSTMs decoding r frames a
+step, the post CBHG and the linear-spectrogram head; free-running in
+``Tacotron.generate`` (inference), teacher-forced in ``Tacotron.forward``
+(training and GTA), with ``tacotron_loss`` and ``noam_learning_rate``.
 
 Module and parameter names follow the flax tree (``attention_gru.ir``,
 ``lstm_1.hf``, ``conv1d_3.Conv_0``, ``gru_fw_wi`` ...), so
 ``etts_torch.convert`` loads a flat export unchanged. Behaviour kept from
 etts:
   - the prenets' dropout 0.5 is always on (`modules.py:6-14`); its
-    uniforms, and the random style weights used without a reference, are
-    inputs (``Tacotron.draw_uniforms``), so a CPU and a card run of one
-    seed compute the same function;
-  - zoneout is the fixed mix ``old * 0.1 + new * 0.9`` of each LSTM's
-    carry, its output the unmixed h (`tacotron.py:259-265`);
-  - BatchNorm normalises by its running statistics, eps 1e-3;
+    uniforms, the random style weights used without a reference and
+    zoneout's training uniforms are inputs (``Tacotron.draw_uniforms``),
+    so a CPU and a card run of one seed compute the same function;
+  - zoneout in inference is the fixed mix ``old * 0.1 + new * 0.9`` of
+    each LSTM's carry (`tacotron.py:259-265`); in training, per step,
+    LSTM and carry part, ``m = floor(0.9 + U)`` keeps the new value where
+    it is 1 and the old where it is 0 (`:244-256`); the LSTM's output,
+    which the residual adds, is the unmixed h either way;
+  - BatchNorm normalises by its running statistics, eps 1e-3; in training
+    by the batch's, and the running ones move by flax's rule (momentum
+    0.99, biased variance), padded ids and frames included, as etts never
+    masks them; the reference encoder's move twice a step, on the target
+    and then on the prediction;
   - ``generate`` runs all ``max_iters`` steps, and zeroes a step's frames
     only when an earlier step's frames were all below 1e-6.
-
-The teacher-forced graph, zoneout's training masks, BatchNorm updates and
-the loss belong to the training half of the Tacotron port.
 """
 from __future__ import annotations
 
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -35,10 +41,11 @@ from .layers import BN_EPS, batch_norm
 
 __all__ = ["TacoPrenet", "ConvBN1D", "Highway", "CBHG",
            "TacoReferenceEncoder", "StyleAttention", "TacotronDecoderCell",
-           "Tacotron"]
+           "Tacotron", "tacotron_loss", "noam_learning_rate"]
 
 KEEP = 0.5          # the prenets keep half their units, always
 ZONEOUT = 0.1
+WARMUP = 4000.0     # Noam's warm-up steps
 STOP_LEVEL = 1e-6   # a step whose frames all lie below this finishes
 
 
@@ -82,11 +89,11 @@ class ConvBN1D(nn.Module):
         self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
         self.relu = relu
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = self.Conv_0(F.pad(x, self.pad))
         if self.relu:
             x = torch.relu(x)
-        return batch_norm(self.BatchNorm_0, x, False)
+        return batch_norm(self.BatchNorm_0, x, train)
 
 
 class Highway(nn.Module):
@@ -129,13 +136,13 @@ class CBHG(nn.Module):
         p = [getattr(self, f"gru_{d}_{n}") for n in ("wi", "wh", "bi", "bh")]
         return gru_scan(*p, x, reverse=reverse)[0]
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         inputs = x
         x = x.transpose(1, 2)
-        x = torch.cat([getattr(self, f"conv1d_{k}")(x)
+        x = torch.cat([getattr(self, f"conv1d_{k}")(x, train)
                        for k in range(1, self.K + 1)], 1)
         x = torch.maximum(x, F.pad(x[:, :, 1:], (0, 1), value=-math.inf))
-        x = self.proj_2(self.proj_1(x)).transpose(1, 2) + inputs
+        x = self.proj_2(self.proj_1(x, train), train).transpose(1, 2) + inputs
         if self.dim_match is not None:
             x = self.dim_match(x)
         for i in range(1, 5):
@@ -165,13 +172,13 @@ class TacoReferenceEncoder(nn.Module):
         self.gru_bh = nn.Parameter(torch.zeros(3 * depth))
         self.ref_proj = nn.Linear(depth, proj_dim)
 
-    def forward(self, mel):
+    def forward(self, mel, train: bool = False):
         b = mel.shape[0]
         x = mel[:, None]                       # (b, 1, t, n_mels)
         for i in range(self.n_conv):
             pad = _same_pad(x.shape[3], 3, 2) + _same_pad(x.shape[2], 3, 2)
             x = getattr(self, f"conv2d_{i}")(F.pad(x, pad))
-            x = torch.relu(batch_norm(getattr(self, f"bn_{i}"), x, False))
+            x = torch.relu(batch_norm(getattr(self, f"bn_{i}"), x, train))
         # flax's NHWC (b, t, f, c) flattened to (b, t, f * c)
         x = x.permute(0, 2, 3, 1).reshape(b, x.shape[2], -1)
         _, h = gru_scan(self.gru_wi, self.gru_wh, self.gru_bi, self.gru_bh, x)
@@ -320,10 +327,15 @@ class TacotronDecoderCell(nn.Module):
         encoder output (b, n, enc_dim), enc_mask (b, n); u the prenet's
         uniforms (b, sum(prenet_depths)); w ``stacked()`` (made here
         without it). -> (carry, frames (b, num_mels * r), alignment
-        (b, n))."""
-        w = self.stacked() if w is None else w
+        (b, n)), zoneout the inference mix."""
+        return self.step(carry, self.decoder_prenet(prev, u), keys, values,
+                         enc_mask, self.stacked() if w is None else w)
+
+    def step(self, carry, x, keys, values, enc_mask, w, zu=None):
+        """``forward`` from the prenet's output x (b, prenet_depths[-1])
+        on; zu zoneout's training uniforms (2 LSTMs, (c, h), b,
+        rnn_depth), None for the inference mix."""
         gru_h, lstm1, lstm2, context = carry
-        x = self.decoder_prenet(prev, u)
         gru_h = GRUCell.step(w["gru"], torch.cat([x, context], -1), gru_h)
         q = self.query_proj(gru_h)
         scores = torch.tanh(keys + q[:, None]) @ self.attention_v[0]
@@ -331,10 +343,15 @@ class TacotronDecoderCell(nn.Module):
         context = (align[:, None] @ values)[:, 0]
         x = self.rnn_proj(torch.cat([gru_h, context], -1))
         carries = []
-        for name, (c_old, h_old) in (("lstm_1", lstm1), ("lstm_2", lstm2)):
-            c_new, h_new = LSTMCell.step(w[name], x, c_old, h_old)
-            carries.append((c_old * ZONEOUT + c_new * (1 - ZONEOUT),
-                            h_old * ZONEOUT + h_new * (1 - ZONEOUT)))
+        for i, (c_old, h_old) in enumerate((lstm1, lstm2)):
+            c_new, h_new = LSTMCell.step(w[f"lstm_{i + 1}"], x, c_old, h_old)
+            if zu is None:
+                carries.append((c_old * ZONEOUT + c_new * (1 - ZONEOUT),
+                                h_old * ZONEOUT + h_new * (1 - ZONEOUT)))
+            else:
+                mc, mh = torch.floor((1 - ZONEOUT) + zu[i])
+                carries.append(((c_new - c_old) * mc + c_old,
+                                (h_new - h_old) * mh + h_old))
             x = x + h_new
         return ((gru_h, carries[0], carries[1], context), self.frame_proj(x),
                 align)
@@ -385,16 +402,22 @@ class Tacotron(nn.Module):
         self.memory_proj = nn.Linear(enc_dim, attention_depth, bias=False)
 
     def draw_uniforms(self, b: int, n: int, max_iters: int | None = None,
-                      seed: int = 0, device="cpu") -> dict:
+                      seed: int = 0, device="cpu",
+                      zoneout: bool = False) -> dict:
         """Every uniform one ``generate`` of b texts of n ids reads, drawn in
         one call from a CPU generator seeded by ``seed`` and copied to
         ``device`` once: {"encoder_prenet": (b, n, P), "style": (num_heads,
         num_gst), the random style's weights before their softmax,
-        "decoder_prenet": (max_iters, b, P)}, P = sum(prenet_depths)."""
-        p = sum(self.prenet_depths)
+        "decoder_prenet": (max_iters, b, P)}, P = sum(prenet_depths); with
+        ``zoneout``, those of a training ``forward`` of max_iters decoder
+        steps: also "zoneout": (max_iters, 2 LSTMs, (c, h), b,
+        rnn_depth), drawn after the others."""
+        p, steps = sum(self.prenet_depths), max_iters or self.max_iters
         shapes = {"encoder_prenet": (b, n, p),
                   "style": (self.num_heads, self.num_gst),
-                  "decoder_prenet": (max_iters or self.max_iters, b, p)}
+                  "decoder_prenet": (steps, b, p)}
+        if zoneout:
+            shapes["zoneout"] = (steps, 2, 2, b, self.rnn_depth)
         sizes = [math.prod(s) for s in shapes.values()]
         flat = torch.rand(sum(sizes),
                           generator=torch.Generator().manual_seed(seed))
@@ -402,20 +425,22 @@ class Tacotron(nn.Module):
         return {k: part.view(s) for (k, s), part in
                 zip(shapes.items(), flat.split(sizes))}
 
-    def encode(self, inputs, reference_mel, uniforms: dict):
+    def encode(self, inputs, reference_mel, uniforms: dict,
+               train: bool = False):
         """ids (b, n), reference mel (b, t, num_mels) or None, uniforms
         (``draw_uniforms``'s layout) -> (encoder output
         (b, n, 2 * cbhg_width + style width), style (b, 1, style width),
         reference embedding (b, ref_proj_dim) or None) (`tacotron.py:329-352`).
         Without a reference the style is a softmax of ``uniforms["style"]``
-        over the tanh'd tokens, one mix per head."""
+        over the tanh'd tokens, one mix per head. ``train``: BatchNorm on
+        batch statistics."""
         b, n = inputs.shape
         pre = self.encoder_prenet(self.text_embedding(inputs),
                                   uniforms["encoder_prenet"])
-        enc = self.encoder_cbhg(pre)
+        enc = self.encoder_cbhg(pre, train)
         ref = None
         if reference_mel is not None:
-            ref = self.ref_encoder(reference_mel)
+            ref = self.ref_encoder(reference_mel, train)
             style = ref[:, None]
             if self.use_gst:
                 tokens = torch.tanh(self.style_tokens)[None].expand(b, -1, -1)
@@ -431,6 +456,61 @@ class Tacotron(nn.Module):
 
     def ref_encode(self, mel):
         return self.ref_encoder(mel)
+
+    def _memory(self, enc_out, input_lengths):
+        """(keys, encoder mask, the decoder's zero carry)."""
+        b, n = enc_out.shape[:2]
+        enc_mask = (torch.arange(n, device=enc_out.device)[None]
+                    < input_lengths[:, None])
+        zeros = lambda d: enc_out.new_zeros(b, d)
+        rd = self.rnn_depth
+        carry = (zeros(self.attention_depth), (zeros(rd), zeros(rd)),
+                 (zeros(rd), zeros(rd)), zeros(enc_out.shape[-1]))
+        return self.memory_proj(enc_out), enc_mask, carry
+
+    def forward(self, inputs, input_lengths, mel_targets, uniforms: dict,
+                reference_mel=None, train: bool = True) -> dict:
+        """The teacher-forced graph (`tacotron.py:382-402`): ids (b, n),
+        lengths (b,), target mels (b, t, num_mels), t a multiple of r;
+        the style from ``reference_mel``, else from the targets. Decoder
+        step k is fed the target frame k * r - 1 (a zero GO frame at step
+        0); then the post CBHG, the linear head, and the reference encoder
+        again on the predicted mel. ``uniforms``: ``draw_uniforms(b, n, t
+        // r, ..., zoneout=train)``'s layout. ``train``: BatchNorm on
+        batch statistics (the running ones moved) and zoneout's masks;
+        else the running statistics and the inference mix (GTA). -> {
+        "mel_outputs" (b, t, num_mels), "linear_outputs" (b, t,
+        num_freq), "alignments" (b, t // r, n), "style_embeddings",
+        "refnet_outputs" (the reference's embedding), "refnet_outputs2"
+        (the prediction's)}."""
+        if reference_mel is None:
+            reference_mel = mel_targets
+        enc_out, style, ref1 = self.encode(inputs, reference_mel, uniforms,
+                                           train)
+        b, r = inputs.shape[0], self.r
+        tf_inputs = mel_targets[:, r - 1::r].transpose(0, 1)
+        dec_in = torch.cat([tf_inputs.new_zeros(1, b, self.num_mels),
+                            tf_inputs[:-1]])
+        # the prenet reads no carry: every step's at once
+        pre = self.decoder_cell.decoder_prenet(dec_in,
+                                               uniforms["decoder_prenet"])
+        keys, enc_mask, carry = self._memory(enc_out, input_lengths)
+        cell = self.decoder_cell
+        w = cell.stacked()
+        frames, aligns = [], []
+        for k in range(dec_in.shape[0]):
+            carry, frame, align = cell.step(
+                carry, pre[k], keys, enc_out, enc_mask, w,
+                uniforms["zoneout"][k] if train else None)
+            frames.append(frame)
+            aligns.append(align)
+        mel = torch.stack(frames, 1).reshape(b, -1, self.num_mels)
+        return {"mel_outputs": mel,
+                "linear_outputs": self.linear_proj(
+                    self.post_cbhg(mel, train)),
+                "alignments": torch.stack(aligns, 1),
+                "style_embeddings": style, "refnet_outputs": ref1,
+                "refnet_outputs2": self.ref_encoder(mel, train)}
 
     @torch.no_grad()
     def generate(self, inputs, input_lengths, reference_mel=None,
@@ -449,16 +529,10 @@ class Tacotron(nn.Module):
             uniforms = self.draw_uniforms(b, n, max_iters, seed,
                                           inputs.device)
         enc_out, style, _ = self.encode(inputs, reference_mel, uniforms)
-        keys = self.memory_proj(enc_out)
-        enc_mask = (torch.arange(n, device=inputs.device)[None]
-                    < input_lengths[:, None])
-        zeros = lambda d: enc_out.new_zeros(b, d)
-        rd = self.rnn_depth
-        carry = (zeros(self.attention_depth), (zeros(rd), zeros(rd)),
-                 (zeros(rd), zeros(rd)), zeros(enc_out.shape[-1]))
+        keys, enc_mask, carry = self._memory(enc_out, input_lengths)
         cell = self.decoder_cell
         w = cell.stacked()
-        prev = zeros(self.num_mels)
+        prev = enc_out.new_zeros(b, self.num_mels)
         finished = torch.zeros(b, dtype=torch.bool, device=inputs.device)
         frames = enc_out.new_empty(max_iters, b, self.num_mels * self.r)
         aligns = enc_out.new_empty(max_iters, b, n)
@@ -475,3 +549,27 @@ class Tacotron(nn.Module):
                 "linear_outputs": self.linear_proj(self.post_cbhg(mel)),
                 "alignments": aligns.transpose(0, 1),
                 "style_embeddings": style}
+
+
+def tacotron_loss(out: dict, mel_targets, linear_targets):
+    """(mel L1 + linear L1 + the two reference embeddings' L1, {"mel_loss",
+    "linear_loss", "ref_enc_loss"}), every mean over all elements, padding
+    included (`tacotron.py:172-180`)."""
+    parts = {"mel_loss": (mel_targets - out["mel_outputs"]).abs().mean(),
+             "linear_loss": (linear_targets
+                             - out["linear_outputs"]).abs().mean(),
+             "ref_enc_loss": (out["refnet_outputs"]
+                              - out["refnet_outputs2"]).abs().mean()}
+    return (parts["mel_loss"] + parts["linear_loss"]
+            + parts["ref_enc_loss"]), parts
+
+
+def noam_learning_rate(init_lr: float, step: int) -> float:
+    """Noam's rate at update ``step`` (from 0; `tacotron.py:206-210`):
+    ``init_lr * w^0.5 * min((step + 1) * w^-1.5, (step + 1)^-0.5)``, w =
+    WARMUP, with etts' float32 arithmetic: the constants in float64,
+    rounded once to float32, each product and the power in float32."""
+    f = np.float32
+    s = f(f(step) + f(1.0))
+    return float(f(f(init_lr * WARMUP ** 0.5)
+                   * min(f(s * f(WARMUP ** -1.5)), s ** f(-0.5))))

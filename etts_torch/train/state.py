@@ -6,7 +6,9 @@ the learning rate comes from a piecewise-linear schedule and is set before
 each update with optax's count: the k-th update (from 0) uses
 ``schedule(k)``. Frozen top-level modules (the pretrained text-encoder
 transplant freezes ``FROZEN_PRETRAINED``) are left out of the optimizer,
-where etts zeroes their updates.
+where etts zeroes their updates. With ``clip_norm`` the gradients are
+first clipped to that global norm by optax's ``clip_by_global_norm``
+formula (GST-Tacotron clips at 1.0, `gst_tacotron/models/tacotron.py:197`).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-__all__ = ["TrainState", "interp_schedule", "FROZEN_PRETRAINED"]
+__all__ = ["TrainState", "interp_schedule", "clip_by_global_norm",
+           "FROZEN_PRETRAINED"]
 
 FROZEN_PRETRAINED = ("TextEncoder", "TextEmbedding")
 
@@ -44,14 +47,27 @@ def interp_schedule(schedule) -> Callable[[int], float]:
     return lr
 
 
+def clip_by_global_norm(grads, max_norm: float) -> list:
+    """optax's ``clip_by_global_norm``: the gradients unchanged where
+    their global norm (the root of the summed squares) is below
+    ``max_norm``, else each ``g / norm * max_norm``. Unlike
+    ``torch.nn.utils.clip_grad_norm_``, no epsilon is added to the norm;
+    and nothing is read back to the host."""
+    norm = torch.stack([(g * g).sum() for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads]
+
+
 class TrainState:
     """``module``'s trainable parameters (``params``, in named order, the
     top-level modules named in ``frozen`` left out), their Adam optimizer,
-    the learning-rate schedule and ``step``, the number of updates made."""
+    the learning-rate schedule and ``step``, the number of updates made;
+    ``clip_norm``, where given, the global norm the gradients are clipped
+    to before each update."""
 
     def __init__(self, module: torch.nn.Module, lr_schedule,
                  frozen: Sequence[str] = (), betas=(0.9, 0.98),
-                 eps: float = 1e-9):
+                 eps: float = 1e-9, clip_norm: float | None = None):
         if not callable(lr_schedule):
             lr_schedule = interp_schedule(lr_schedule)
         self.module = module
@@ -62,14 +78,18 @@ class TrainState:
         self.params = [p for _, p in named]
         self.optimizer = torch.optim.Adam(self.params, lr=lr_schedule(0),
                                           betas=betas, eps=eps)
+        self.clip_norm = clip_norm
         self.step = 0
 
     def apply_gradients(self, grads):
-        """One Adam update of ``params`` by ``grads`` (aligned with them) at
-        the learning rate ``schedule(step)``."""
+        """One Adam update of ``params`` by ``grads`` (aligned with them,
+        clipped first where ``clip_norm`` is set) at the learning rate
+        ``schedule(step)``."""
         lr = self.lr_schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+        if self.clip_norm is not None:
+            grads = clip_by_global_norm(grads, self.clip_norm)
         for p, g in zip(self.params, grads, strict=True):
             p.grad = g
         self.optimizer.step()

@@ -1,6 +1,6 @@
 """Train and validation steps of the forward and autoregressive models,
-the MINE zoo's updates and the WaveRNN vocoder's step (port of
-``etts/train/steps.py:50-414``).
+the MINE zoo's updates, the WaveRNN vocoder's step and GST-Tacotron's
+(port of ``etts/train/steps.py:50-449``).
 
 The forward step: the masked MAE of the mel and of the durations, weights
 3 and 1, the target durations regulating the lengths; no prenet dropout,
@@ -30,6 +30,7 @@ import hashlib
 import torch
 
 from ..models.mine import MIState, pair_draws
+from ..models.tacotron import tacotron_loss
 from ..models.wavernn import discretized_mix_logistic_loss, raw_loss
 from ..utils.losses import (l2_loss, masked_mean_absolute_error,
                             new_scaled_crossentropy, weighted_sum_losses)
@@ -38,7 +39,7 @@ __all__ = ["fold_in", "generator", "frozen_batch_stats",
            "make_forward_train_step", "make_forward_val_step",
            "make_autoregressive_train_step", "make_autoregressive_val_step",
            "make_mine_update", "make_mine_zoo_update",
-           "make_wavernn_train_step"]
+           "make_wavernn_train_step", "make_tacotron_train_step"]
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -321,5 +322,33 @@ def make_wavernn_train_step(model):
                 if model.mode == "MOL" else raw_loss(logits, y))
         state.apply_gradients(_grads(loss, state.params))
         return {"loss": loss.detach()}
+
+    return step
+
+
+def make_tacotron_train_step(model):
+    """``step(state, batch, rng) -> metrics``, one update
+    of ``state`` (a ``TrainState`` of the GST-Tacotron ``model``, which
+    clips and applies Adam) on ``batch`` (ids (b, n), lengths (b,), mel
+    targets (b, t, num_mels), linear targets (b, t, num_freq); t a
+    multiple of r) on the model's device (`etts/train/steps.py:421-449`):
+    the teacher-forced forward in train mode (the BatchNorms' running
+    statistics move), ``tacotron_loss``. The prenets' and zoneout's
+    uniforms are ``model.draw_uniforms(..., seed=rng, zoneout=True)``'s,
+    drawn on the CPU: one rng gives every device the same. Metrics: {"loss", "mel_loss", "linear_loss",
+    "ref_enc_loss", "alignments" (b, t // r, n)}, on the device."""
+    def step(state, batch, rng: int):
+        inputs, input_lengths, mel_targets, linear_targets = batch
+        uniforms = model.draw_uniforms(
+            inputs.shape[0], inputs.shape[1], mel_targets.shape[1] // model.r,
+            seed=rng, device=inputs.device, zoneout=True)
+        out = model(inputs, input_lengths, mel_targets,
+                    {k: u.to(mel_targets.dtype) for k, u in uniforms.items()},
+                    train=True)
+        loss, parts = tacotron_loss(out, mel_targets, linear_targets)
+        state.apply_gradients(_grads(loss, state.params))
+        return {"loss": loss.detach(),
+                **{k: v.detach() for k, v in parts.items()},
+                "alignments": out["alignments"].detach()}
 
     return step

@@ -100,8 +100,8 @@ class ConfigManager:
             yaml.safe_dump(self.data_config, f)
 
     def load_model(self, step: Optional[int] = None, device="cpu"):
-        """The session's model (``model_kind`` "autoregressive", "forward"
-        or "wavernn") with the weights and BatchNorm statistics of
+        """The session's model (``model_kind`` "autoregressive", "forward",
+        "wavernn" or "tacotron") with the weights and BatchNorm statistics of
         ``weights_dir/ckpt-{step}.pt`` (the latest where ``step`` is None),
         as the training drivers save them, on ``device``; the counterpart
         of etts' ``ConfigManager.load_model``. Returns (model, step, the
@@ -114,6 +114,8 @@ class ConfigManager:
             raise FileNotFoundError(f"no checkpoint in {self.weights_dir}")
         if self.model_kind == "wavernn":
             model = build_vocoder(self.config)
+        elif self.model_kind == "tacotron":
+            model = build_tacotron(self.config)
         else:
             build = {"autoregressive": build_tts,
                      "forward": build_forward}[self.model_kind]

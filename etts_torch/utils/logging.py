@@ -4,7 +4,8 @@
 (``train/loss``, ``meta/reduction_factor``, ``mi/MINE_0`` ...) as JSON
 lines, ``{"tag", "value", "step"}``, in ``log_dir/scalars.jsonl``; a
 predicted mel, and the values of a histogram, go to ``log_dir`` as
-``.npy``. No TensorBoard writer: the
+``.npy``, and so does an image's array (a Tacotron's alignment). No
+TensorBoard writer: the
 card's machine has none."""
 from __future__ import annotations
 
@@ -61,6 +62,12 @@ class ScalarLog:
     def save_mel(self, mel, tag: str, step: int) -> Path:
         """The mel (t, n_mels) as ``{tag with / as _}_{step}.npy``."""
         return self._save(mel, tag, step)
+
+    def add_image(self, tag: str, values, step: int) -> Path:
+        """The array etts' ``SummaryManager.add_image`` draws (an
+        alignment (decoder steps, encoder steps)), kept as ``{tag with /
+        as _}_{step}.npy``."""
+        return self._save(values, tag, step)
 
     def add_histogram(self, tag: str, values, step: int) -> Path:
         """The values whose histogram etts' ``SummaryManager`` writes

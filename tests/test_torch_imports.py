@@ -44,4 +44,6 @@ def test_port_imports_no_jax_flax_or_etts():
             "etts_torch.train_forward", "etts_torch.data.audio_io",
             "etts_torch.data.builders", "etts_torch.preprocess_wavernn",
             "etts_torch.train_wavernn", "etts_torch.gen_wavernn",
-            "etts_torch.make_gta"} <= set(modules)
+            "etts_torch.make_gta", "etts_torch.create_dataset",
+            "etts_torch.data.taco_builders",
+            "etts_torch.train_tacotron"} <= set(modules)
