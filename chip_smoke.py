@@ -137,10 +137,19 @@ Phases (any failure exits non-zero and prints no result line):
      width (batch 8, r = 2) for 20 steps, resumed to 30 (the batches
      against the permutation stream); the last export through
      TacotronSynthesizer (launches read around it: none); two runs under
-     deterministic algorithms, one cut and resumed, held bit for bit.
+     deterministic algorithms, one cut and resumed, held bit for bit;
+  14. ``precision: bfloat16`` (bf16_phase): the 14k export in the bf16
+     model through the fused decode and B1 (against its plain bf16 decode
+     on the card, the float32 model's distance the control), its RTF,
+     ``predict_many`` and a stream; the forward model at 1280 frames, bf16
+     against float32; ``train_autoregressive`` in bf16 with
+     ``--profile_dir`` and Griffin-Lim prediction audio, and
+     ``train_forward`` in bf16, beside phases 9's and 11's float32 runs;
+     one AR and one forward bf16 step, card against CPU.
 
 The port computes in float32 without TF32 (``utils/precision.py``), as
-every entry point sets it.
+every entry point sets it, except where a config asks for ``precision:
+bfloat16`` (phase 14).
 
 Each entry of the kernels line counts the launches of the run it
 describes (the main path's, or the serving run's in its mode), and lists
@@ -337,6 +346,40 @@ TT_DET_STEPS = (4, 8)
 TT_WORDS = ("the quick brown fox jumps over a lazy dog while birds fly "
             "south in winter and children play in the park as rain falls "
             "on the roof of an old house near the river").split()
+
+
+# phase 14: precision bfloat16, configs/default with the key written into
+# a copy of its configs. Serving: the 14k export's bf16 model through the
+# fused decode against the same model's plain bf16 decode on the card, and
+# the float32 model's the same way (the control), each as (frames apart in
+# length, mean |d| of the mel over the frames both have, in [-4, 4]); the
+# forward pass at max_frames 1280, bf16 against float32 on the same
+# durations, norm-relative; one AR and one forward train step on
+# BF16_CPU_ROWS rows, the card's bf16 gradients against the CPU's, each
+# tensor within BF16_GRAD_RTOL of the CPU's norm or BF16_NOISE times the
+# CPU's own bf16-vs-float32 distance, whichever is larger (a gradient that
+# nearly cancels, a key's or one zero in exact arithmetic, is bf16 noise on
+# both devices), and the card's distance from the CPU's float32 step
+# within a factor BF16_DIST of the CPU's (a card that skipped the bf16
+# casts would sit at float32's); the driver's steps, the forward driver's.
+# Read on the H100 before these bars were set: the decode 0.0135 (control
+# 0.0094); the forward pass 2.12e-2; the gradients, against the CPU's norm
+# alone, 0.129 (AR, `wq.bias`) and 0.288 (forward, `wk.weight`), each
+# device's distance from float32 4.32e-2 and 4.37e-2 (AR), 1.320e-1 and
+# 1.330e-1 (forward)
+BF16_DECODE_LEN = 0.1      # share of the plain decode's frames
+BF16_DECODE_MEAN = 0.05
+BF16_FWD_TOL = 5e-2
+BF16_GRAD_RTOL = 5e-2
+BF16_NOISE = 3.0
+BF16_DIST = 2.0
+BF16_CPU_ROWS = 2
+BF16_TRAIN_STEPS = 32
+BF16_TRACE = (10, 30)
+BF16_FWD_STEPS = 5
+# phase 9's float32 run (median ms/step, target frames/s, peak GiB),
+# printed beside phase 14's bf16 run
+F32_TRAIN = {}
 
 
 def card() -> str:
@@ -1362,6 +1405,12 @@ def train_phase(cl, ref_mel, spk, failures):
     if not (sorted(losses) == [0, 10, 19, 20, 29]
             and all(math.isfinite(v) for v in losses.values())):
         failures.append(f"training losses {losses}")
+    if TRAIN_STEPS[0] - 1 in peak:
+        F32_TRAIN["autoregressive"] = {
+            "ms": statistics.median(step_ms),
+            "fps": frames / sum(step_ms) * 1e3,
+            "gib": (peak[TRAIN_STEPS[0] - 1] - bases[TRAIN_STEPS[0] - 1])
+            / 2**30}
 
     # the trained statistics, and the export through the fused decode
     tree = torch.load(cm.weights_dir / f"ckpt-{TRAIN_STEPS[1]}.pt",
@@ -2965,6 +3014,362 @@ def taco_train_phase(cl, wav_ref, failures):
     return paths
 
 
+def _bf16_copy(src: Path, dst: Path, kinds, log_directory=None, **over):
+    """Copy ``data_config.yaml`` and the ``kinds``' configs of config dir
+    ``src`` into ``dst``, each model config with ``precision: bfloat16``
+    and ``over``, the data config with ``log_directory`` where given."""
+    import shutil
+    import yaml
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    for kind in ("data", *kinds):
+        cfg = yaml.safe_load((src / f"{kind}_config.yaml").read_text())
+        if kind != "data":
+            cfg.update(over, precision="bfloat16")
+        elif log_directory is not None:
+            cfg["log_directory"] = log_directory
+        (dst / f"{kind}_config.yaml").write_text(yaml.safe_dump(cfg))
+    return dst
+
+
+def bf16_grad_check(names, card_g, cpu_g, f32_g):
+    """The card's bf16 gradients against the CPU's: (the worst tensor's
+    ||d|| / max(BF16_GRAD_RTOL * ||g||, BF16_NOISE * ||g - g_f32||), g the
+    CPU's bf16 gradient and g_f32 its float32 one, and the tensor's name;
+    the card's and the CPU's norm-relative distance from the CPU's float32
+    step over all the gradients). Within the bars where the first is at
+    most 1 and the card's distance within a factor BF16_DIST of the
+    CPU's."""
+    import torch
+    worst = (0.0, "-")
+    for n, a, b, f in zip(names, card_g, cpu_g, f32_g):
+        a, b, f = a.double(), b.double(), f.double()
+        bar = max(BF16_GRAD_RTOL * float(b.norm()),
+                  BF16_NOISE * float((b - f).norm()), 1e-30)
+        worst = max(worst, (float((a - b).norm()) / bar, n))
+    flat = lambda g: torch.cat([x.double().ravel() for x in g])
+    f = flat(f32_g)
+    dist = [float((flat(g) - f).norm() / f.norm()) for g in (card_g, cpu_g)]
+    return worst, dist
+
+
+def bf16_phase(cl, tts32, voc, ref_mel, spk, batch_s, failures):
+    """Phase 14: ``precision: bfloat16`` (bf16 compute on float32
+    parameters) in the AR and forward models, configs/default with the key
+    written into a copy of its configs under ``build/``:
+      1. the 14k export in the bf16 model: SENTENCE through the fused
+         decode and B1 (the launches read around it), against the bf16
+         model's plain decode on the card (BF16_DECODE_LEN,
+         BF16_DECODE_MEAN), the float32 model's (``tts32``, phase 4's)
+         distance beside it as the control; text -> wav RTF;
+         ``predict_many`` on the 8 serving texts (no kernel launch; phase
+         6's float32 decode time ``batch_s`` beside); a bf16 stream of
+         STREAM_CHUNK-step chunks at phase 7's STREAM_MAX_LENGTH, its mel
+         against the plain decode's, bit for bit;
+      2. the forward model (seeded, as phase 8's) at max_frames 1280, bf16
+         against float32 on the same durations (BF16_FWD_TOL), each pass
+         timed by CUDA events;
+      3. ``train_autoregressive`` on phase 9's corpus and config in bf16
+         for BF16_TRAIN_STEPS steps with ``--profile_dir`` (the trace of
+         steps 10-30, each a span) and prediction audio every 10 steps
+         from step 0 (the wavs finite, at the config's rate); ms/step,
+         target frames/s and peak memory beside phase 9's float32 run;
+         ``train_forward`` on phase 11's durations in bf16 for
+         BF16_FWD_STEPS steps beside phase 11's float32 run;
+      4. one AR and one forward bf16 train step on the BF16_CPU_ROWS
+         shortest rows, dropout 0, the card's gradients against the CPU's
+         (``bf16_grad_check``: BF16_GRAD_RTOL, BF16_NOISE, BF16_DIST).
+    Failed checks go to ``failures``; returns the bf16 runs' launches
+    ({path: read_launches()})."""
+    import statistics
+    import numpy as np
+    import torch
+    from etts_torch import train_autoregressive, train_forward
+    from etts_torch.api import TTSSynthesizer
+    from etts_torch.convert import load_into, seeded_flat
+    from etts_torch.data.audio_io import load_wav
+    from etts_torch.data.dataset import (DataPrepper, Dataset,
+                                         ForwardDataPrepper, load_files)
+    from etts_torch.models.autoregressive import autoregressive_predict
+    from etts_torch.models.init import init_flax
+    from etts_torch.ops.normalizers import vocoder_mel
+    from etts_torch.text import default_tokenizer
+    from etts_torch.train.steps import (make_autoregressive_train_step,
+                                        make_forward_train_step)
+    from etts_torch.utils.config import (ConfigManager, build_forward,
+                                         build_tts, load_config,
+                                         text_pipeline)
+    from etts_torch.utils.logging import read_scalars
+    dev = torch.device("cuda")
+    build = ROOT / "build"
+    paths = {}
+    sr = voc.config["sampling_rate"]
+
+    # 1. serving
+    cdir = _bf16_copy(CONFIG, build / "phase14_config",
+                      ("autoregressive", "forward"))
+    tts = TTSSynthesizer(cdir, TTS_W, "cuda", step=14000,
+                         phonemizer_backend="grapheme")
+    if tts.model.dtype != torch.bfloat16 or any(
+            p.dtype != torch.float32 for p in tts.model.parameters()):
+        failures.append("bf16 config: not bf16 compute on float32 weights")
+    tts.predict(SENTENCE, ref_mel, spk, max_length=1000, seed=0)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tts.predict(SENTENCE, ref_mel, spk, max_length=1000, seed=0)
+    mel = out["mel"]
+    wav = voc.generate(vocoder_mel(torch.from_numpy(mel),
+                                   tts.mel_dtype).numpy(), seed=0)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    ran = paths["bf16_main"] = read_launches()
+    audio_s = wav.shape[0] / sr
+    want = {k: int(k in ("fused_decode", "wavernn_sample_loop")) for k in ran}
+    if ran != want:
+        failures.append(f"bf16 main path launches {ran}, want {want}")
+    if not (np.isfinite(mel).all() and np.isfinite(wav).all()
+            and np.abs(wav).max() <= 1.0):
+        failures.append("bf16 main path: mel or wav not finite")
+
+    def fused_vs_plain(t):
+        """(B2's mel, the model's plain decode's mel, frames apart, mean
+        |d| over the frames both have)."""
+        with torch.no_grad():
+            k_mel = t.predict(SENTENCE, ref_mel, spk, max_length=1000,
+                              seed=0)["mel"]
+            inp, ref, spk_t = t._stream_inputs(SENTENCE, ref_mel, spk)
+            o = autoregressive_predict(
+                t.model, inp, ref, spk_t, r=t.r, max_length=1000,
+                prenet_dropout=t.prenet_dropout,
+                generator=torch.Generator(dev).manual_seed(0))
+        p_mel = o["mel"][0, :o["mel_length"]].float().cpu().numpy()
+        n = min(len(k_mel), len(p_mel))
+        return (len(k_mel), len(p_mel), abs(len(k_mel) - len(p_mel)),
+                float(np.abs(k_mel[:n] - p_mel[:n]).mean()),
+                float(np.abs(k_mel[:n] - p_mel[:n]).max()))
+    b16, f32 = fused_vs_plain(tts), fused_vs_plain(tts32)
+    say(cl, f"bf16 model (14k export): SENTENCE -> {mel.shape[0]} frames in "
+            f"{out['steps']} steps -> {wav.shape[0]} samples; text -> wav "
+            f"{e2e:.3f} s, RTF {e2e / audio_s:.4f}; launches {ran}")
+    say(cl, "fused decode against the plain decode on the card: bf16 model "
+            f"{b16[0]} vs {b16[1]} frames, mean |dmel| {b16[3]:.4f} over the "
+            f"common frames (max {b16[4]:.3f}; bars: frames apart <= "
+            f"{BF16_DECODE_LEN} of the plain decode's, mean "
+            f"{BF16_DECODE_MEAN}); float32 model (the control) {f32[0]} vs "
+            f"{f32[1]} frames, mean |dmel| {f32[3]:.4f} (max {f32[4]:.3f})")
+    if not (b16[2] <= BF16_DECODE_LEN * b16[1] and b16[3] <= BF16_DECODE_MEAN):
+        failures.append("bf16 fused decode against the plain bf16 decode")
+
+    zero_launches()
+    ms, mels = cuda_ms(lambda: tts.predict_many(
+        SERVING_TEXTS, ref_mel, spk, max_length=1000, seed=0), 1, warm=False)
+    ran = paths["bf16_serving_decode"] = read_launches()
+    if any(ran.values()) or not all(np.isfinite(x).all() for x in mels):
+        failures.append(f"bf16 predict_many: launches {ran} or not finite")
+    say(cl, f"bf16 predict_many: {len(SERVING_TEXTS)} texts -> "
+            f"{[x.shape[0] for x in mels]} frames in one decode, {ms / 1e3:.3f}"
+            f" s (float32, phase 6: {batch_s:.3f} s); launches {ran}")
+
+    kw = dict(max_length=STREAM_MAX_LENGTH, mel_chunk=STREAM_CHUNK, seed=0)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks = list(tts.stream(SENTENCE, voc, ref_mel, spk, **kw))
+    st_s = time.perf_counter() - t0
+    ran = paths["bf16_stream"] = read_launches()
+    swav = np.concatenate(chunks)
+    mel_s = np.concatenate(list(tts.stream_mels(SENTENCE, ref_mel, spk,
+                                                **kw)))
+    inp, ref, spk_t = tts._stream_inputs(SENTENCE, ref_mel, spk)
+    with torch.no_grad():
+        o = autoregressive_predict(
+            tts.model, inp, ref, spk_t, r=tts.r,
+            max_length=STREAM_MAX_LENGTH, prenet_dropout=tts.prenet_dropout,
+            generator=torch.Generator(dev).manual_seed(0))
+    mel_p = o["mel"][0, :o["mel_length"]].float().cpu().numpy()
+    same = mel_s.shape == mel_p.shape and bool((mel_s == mel_p).all())
+    want = {k: 0 for k in ran} | {"wavernn_sample_loop": len(chunks)}
+    say(cl, f"bf16 stream, mel_chunk {STREAM_CHUNK} at r = {tts.r}, "
+            f"max_length {STREAM_MAX_LENGTH}: {len(chunks)} chunks, "
+            f"{swav.shape[0]} samples in {st_s:.3f} s, stream RTF "
+            f"{st_s / (swav.shape[0] / sr):.4f}; launches {ran}; its mel "
+            f"equal to the plain bf16 decode's: {same}")
+    if not (ran == want and same and np.isfinite(swav).all()
+            and mel_s.shape[0] * voc.model.hop_length == swav.shape[0]):
+        failures.append("bf16 stream")
+
+    # 2. the forward model at 1280 frames, bf16 against float32
+    models = {}
+    for label, d in (("bf16", cdir), ("float32", CONFIG)):
+        cfg = load_config(d, "forward")
+        vocab = text_pipeline(cfg, "grapheme", "forward").tokenizer.vocab_size
+        flat = seeded_flat(build_forward(cfg, vocab), 11)
+        flat["['dur_pred']['linear']['bias']"][:] = FWD_FRAMES_PER_TOKEN
+        models[label] = load_into(build_forward(cfg, vocab), flat).to(dev)
+    pipe = text_pipeline(cfg, "grapheme", "forward")
+    ids = torch.tensor(pipe(SENTENCE))[None].to(dev)
+    cap = int(cfg["max_frames"])
+    with torch.no_grad():
+        f_ms = {k: cuda_ms(lambda: m(ids, max_frames=cap), 5)[0]
+                for k, m in models.items()}
+        dur = torch.round(models["float32"](ids, max_frames=cap)["duration"])
+        o16, o32 = (models[k](ids, dur, max_frames=cap)
+                    for k in ("bf16", "float32"))
+    d_fwd = float((o16["mel"].float() - o32["mel"]).norm()
+                  / o32["mel"].norm())
+    say(cl, f"forward model at max_frames {cap} ({int(o32['mel_lengths'][0])}"
+            f" frames of SENTENCE): bf16 {f_ms['bf16']:.3f} ms, float32 "
+            f"{f_ms['float32']:.3f} ms a pass (CUDA events, mean of 5); bf16 "
+            f"mel against float32 on the same durations, norm-relative "
+            f"{d_fwd:.3e} (tol {BF16_FWD_TOL})")
+    if not (d_fwd <= BF16_FWD_TOL and o16["mel"].dtype == torch.bfloat16):
+        failures.append("bf16 forward model against float32")
+    del models, o16, o32
+
+    # 3. the drivers
+    tdir = _bf16_copy(build / "phase9_config", build / "phase14_train",
+                      ("autoregressive",), str(build / "phase14_logs"),
+                      audio_start_step=0, audio_prediction_frequency=10)
+    prof = build / "phase14_trace"
+    secs, outp, base = run_main(train_autoregressive.main, [
+        "--config", str(tdir), "--session_name", "phase14", "--max_steps",
+        str(BF16_TRAIN_STEPS), "--profile_dir", str(prof)])
+    cm = ConfigManager(tdir, "autoregressive", "phase14")
+    trace = prof / f"trace_steps_{BF16_TRACE[0]}-{BF16_TRACE[1]}.json"
+    spans = set()
+    if trace.exists():
+        spans = set(re.findall(r'"name": "(step \d+)"', trace.read_text()))
+    want_spans = {f"step {n}" for n in range(BF16_TRACE[0],
+                                             BF16_TRACE[1] + 1)}
+    wavs = {}
+    for step in range(9, BF16_TRAIN_STEPS, 10):
+        p = cm.log_dir / f"prediction_audio_{step}.wav"
+        if p.exists():
+            w, rate = load_wav(p)
+            wavs[step] = (len(w), rate, bool(np.isfinite(w).all()),
+                          float(np.abs(w).max()))
+    sc = read_scalars(cm.log_dir)
+
+    def speed(span):
+        ms = [sc["time/step_ms"][i] for i in span]
+        fr = sum(sc["meta/target_frames"][i] for i in span)
+        return statistics.median(ms), fr / sum(ms) * 1e3
+    quiet = [*range(2, BF16_TRACE[0]), BF16_TRAIN_STEPS - 1]
+    med, fps = speed(quiet)
+    med_t, _ = speed(range(BF16_TRACE[0] + 1, BF16_TRACE[1]))
+    f9 = F32_TRAIN.get("autoregressive", {})
+    peak = sc.get("meta/max_memory_allocated", {}).get(BF16_TRAIN_STEPS - 1)
+    losses = sc.get("train/loss", {})
+    say(cl, f"train_autoregressive in bf16, {BF16_TRAIN_STEPS} steps on "
+            f"phase 9's corpus and config: {secs:.1f} s; median "
+            f"{med:.2f} ms/step over steps {quiet[0]}-{quiet[-2]} and "
+            f"{quiet[-1]} ({med_t:.2f} under the profiler), {fps:.0f} target "
+            f"frames/s; peak memory "
+            f"{(peak - base) / 2**30 if peak else float('nan'):.3f} GiB; "
+            f"float32 (phase 9, steps 5-{TRAIN_STEPS[0] - 1}): "
+            f"{f9.get('ms', float('nan')):.2f} ms/step, "
+            f"{f9.get('fps', float('nan')):.0f} target frames/s, peak "
+            f"{f9.get('gib', float('nan')):.3f} GiB; losses "
+            f"{dict(sorted(losses.items()))}")
+    say(cl, f"--profile_dir: {trace.name} "
+            f"{trace.stat().st_size / 2**20 if trace.exists() else 0:.1f} "
+            f"MiB, step spans {min(spans, default='-')} .. "
+            f"{max(spans, default='-')} ({len(spans)}); prediction audio "
+            f"(steps: samples, rate, finite, peak) {wavs}")
+    if spans != want_spans:
+        failures.append(f"profiler trace spans {sorted(spans)}")
+    if not (sorted(wavs) == [9, 19, 29] and all(
+            n > 0 and rate == sr and fin for n, rate, fin, _ in
+            wavs.values())):
+        failures.append(f"prediction audio {wavs}")
+    if not (len(losses) and all(math.isfinite(v) for v in losses.values())
+            and peak):
+        failures.append(f"bf16 training log: losses {losses}, peak {peak}")
+
+    fdir = _bf16_copy(build / "phase11_config", build / "phase14_forward",
+                      ("forward",), str(build / "phase14_logs"))
+    secs, outp, _ = run_main(train_forward.main, [
+        "--config", str(fdir), "--session_name", "phase14", "--max_steps",
+        str(BF16_FWD_STEPS)])
+    fsc = read_scalars(ConfigManager(fdir, "forward", "phase14").log_dir)
+    f11 = read_scalars(ConfigManager(build / "phase11_config", "forward",
+                                     "phase11").log_dir)
+    fl = fsc.get("train/loss", {})
+    fmed = statistics.median(fsc["time/step_ms"][i]
+                             for i in range(1, BF16_FWD_STEPS))
+    fmed11 = statistics.median(f11["time/step_ms"][i]
+                               for i in range(5, FT_STEPS[0]))
+    say(cl, f"train_forward in bf16, {BF16_FWD_STEPS} steps on phase 11's "
+            f"durations: {secs:.1f} s; median {fmed:.2f} ms/step over steps "
+            f"1-{BF16_FWD_STEPS - 1} (float32, phase 11: {fmed11:.2f}); "
+            f"losses {dict(sorted(fl.items()))}")
+    if not (fl and all(math.isfinite(v) for v in fl.values())):
+        failures.append(f"bf16 train_forward losses {fl}")
+
+    # 4. the card's bf16 gradients against the CPU's
+    c = cm.config
+    tok = default_tokenizer(True)
+    samples, _ = load_files(Path(c["train_data_directory"])
+                            / "train_metafile.txt",
+                            Path(c["train_data_directory"]) / "mels",
+                            Path(c["train_data_directory"]) / "spk_embeds")
+    short = sorted(samples, key=lambda x: np.load(x[2], mmap_mode="r")
+                   .shape[0])[:BF16_CPU_ROWS]
+    host = Dataset(short, DataPrepper(c, tok), BF16_CPU_ROWS, shuffle=False,
+                   mel_channels=c["mel_channels"]).next_batch()
+    r = c["reduction_factor_schedule"][0][1]
+    fc = ConfigManager(fdir, "forward", "phase14").config
+    fcap = int(fc["max_frames"])
+    files = sorted((Path(c["train_data_directory"]) / "forward_data"
+                    / "train").glob("*.npy"),
+                   key=lambda f: np.load(f, allow_pickle=True)[0].shape[0])
+    fhost = Dataset(files[:BF16_CPU_ROWS], ForwardDataPrepper(),
+                    BF16_CPU_ROWS, shuffle=False,
+                    mel_channels=fc["mel_channels"],
+                    pad_mel_multiple=fcap).next_batch()
+
+    def ar_grads(where, precision):
+        model = build_tts(dict(c, dropout_rate=0.0, precision=precision),
+                          tok.vocab_size)
+        init_flax(model, torch.Generator().manual_seed(
+            train_autoregressive.SEED)).to(where)
+        state = grad_capture(model, c["learning_rate_tts_schedule"])
+        make_autoregressive_train_step(
+            model, stop_scaling=c["stop_loss_scaling"])(
+            state, train_autoregressive.to_device(host, where), 0.0, 0, r=r,
+            prenet_dropout=0.0)
+        return state.names, state.grads
+
+    def fwd_grads(where, precision):
+        model = build_forward(dict(fc, precision=precision),
+                              default_tokenizer(False).vocab_size,
+                              dropout_rate=0.0)
+        init_flax(model, torch.Generator().manual_seed(
+            train_autoregressive.SEED)).to(where)
+        state = grad_capture(model, fc["learning_rate_tts_schedule"])
+        make_forward_train_step(model, fcap)(
+            state, train_forward.to_device(fhost, where), 0)
+        return state.names, state.grads
+    for label, run, shape in (("AR", ar_grads, host[0].shape),
+                              ("forward", fwd_grads, fhost[0].shape)):
+        t0 = time.perf_counter()
+        names, g_card = run("cuda", "bfloat16")
+        _, g_cpu = run("cpu", "bfloat16")
+        _, g_f32 = run("cpu", "float32")
+        worst, dist = bf16_grad_check(names, g_card, g_cpu, g_f32)
+        say(cl, f"{label} train step in bf16, card vs CPU (batch {shape}, "
+                f"dropout 0): worst gradient {worst[1]}: |d| / max("
+                f"{BF16_GRAD_RTOL} |g|, {BF16_NOISE} |g - g_float32|) "
+                f"{worst[0]:.3f} (tol 1); from the CPU's float32 step: card "
+                f"{dist[0]:.3e}, CPU {dist[1]:.3e} (within x{BF16_DIST}) "
+                f"({time.perf_counter() - t0:.1f} s)")
+        if not (worst[0] <= 1.0
+                and dist[1] / BF16_DIST <= dist[0] <= dist[1] * BF16_DIST):
+            failures.append(f"{label} bf16 step, card vs CPU")
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3587,6 +3992,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths |= taco_train_phase(cl, wav_ref, failures)
     say(cl, f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. precision bfloat16: serving, streaming, training ----
+    t0 = time.perf_counter()
+    paths |= bf16_phase(cl, tts, voc, ref_mel, spk, dec_s, failures)
+    say(cl, f"phase 14 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "fused_decode", "route": "cuda",

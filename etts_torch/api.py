@@ -28,7 +28,8 @@ from .models.wavernn import generate, generate_batch
 from .ops.audio import AudioProcessor
 from .ops.griffin_lim import griffin_lim
 from .ops.kernels.decoder_step import can_fuse, decode_weights, fused_decode
-from .ops.normalizers import db_to_amp, deemphasis, denormalize_db
+from .ops.normalizers import (db_to_amp, deemphasis, denormalize_db,
+                              vocoder_mel)
 from .text import text_to_sequence
 from .utils.config import (ConfigManager, build_forward, build_tacotron,
                            build_tts, build_vocoder, load_config,
@@ -94,6 +95,14 @@ class TTSSynthesizer:
         self.audio = AudioProcessor(self.config)
         self.attn_stop_patience = self.config.get("attn_stop_patience")
         self.max_frames_per_token = self.config.get("max_frames_per_token")
+
+    @property
+    def mel_dtype(self) -> torch.dtype:
+        """The dtype ``predict`` makes its mel in (it returns it as float32
+        numpy): float32 from the fused decode, else the model's compute
+        dtype. ``ops.normalizers.vocoder_mel`` takes it."""
+        fused = self.model_kind == "autoregressive" and can_fuse(self.model)
+        return torch.float32 if fused else self.model.dtype
 
     def encode_text(self, text: str) -> np.ndarray:
         return np.asarray(self.pipeline(text), np.int64)
@@ -163,7 +172,7 @@ class TTSSynthesizer:
             m, inp, ref, spk, r=self.r, max_length=max_length,
             prenet_dropout=self.prenet_dropout, attn_stop_patience=asp,
             max_frames_per_token=mft, generator=gen)
-        mel = out["mel"].cpu().numpy()
+        mel = out["mel"].float().cpu().numpy()
         lengths = out["mel_lengths"].tolist()
         return ([mel[i, :n] for i, n in enumerate(lengths)], out["steps"],
                 _style(out["gst_tokens"], out["gst_encoder_attention"]))
@@ -201,8 +210,8 @@ class TTSSynthesizer:
         divides its durations by ``speed_regulator``."""
         if self.model_kind == "forward":
             _reject_forward_conditioning(ref_mel, spk_embed)
-            return {"mel": self._forward_mel(text,
-                                             speed_regulator).cpu().numpy()}
+            return {"mel": self._forward_mel(
+                text, speed_regulator).float().cpu().numpy()}
         mels, steps, style = self._decode([text], ref_mel, spk_embed,
                                           max_length, seed,
                                           attn_stop_patience,
@@ -265,7 +274,8 @@ class TTSSynthesizer:
         weights = vocoder._loop_args(int8)["weights"]
         if self.model_kind == "forward":
             _reject_forward_conditioning(ref_mel, spk_embed)
-            mel = (self._forward_mel(text, 1.0) + 4.0) / 8.0
+            mel = self._forward_mel(text, 1.0)
+            mel = vocoder_mel(mel, mel.dtype)
             yield from stream_vocode(
                 vocoder.model, (mel[i:i + mel_chunk]
                                 for i in range(0, mel.shape[0], mel_chunk)),
@@ -372,6 +382,14 @@ class TacotronSynthesizer:
         self.config = load_config(config_dir, "tacotron")
         self.model = load_into(build_tacotron(self.config),
                                weights_npz).to(self.device)
+
+    @property
+    def mel_dtype(self) -> torch.dtype:
+        """The dtype ``predict`` makes its mel in (it returns it as float32
+        numpy): float32 from the fused decode, else the model's compute
+        dtype. ``ops.normalizers.vocoder_mel`` takes it."""
+        fused = self.model_kind == "autoregressive" and can_fuse(self.model)
+        return torch.float32 if fused else self.model.dtype
 
     def encode_text(self, text: str) -> np.ndarray:
         return np.asarray(text_to_sequence(

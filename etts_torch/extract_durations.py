@@ -52,7 +52,7 @@ def extract_batch(val_step, host, device, *, weighted=True, binary=False,
     durations, unpad_mels, unpad_phon, _ = get_durations_from_alignment(
         attention, mel, phonemes, weighted=weighted, binary=binary,
         fix_jumps=fix_jumps, fill_gaps=True, fill_mode=fill_mode)
-    predicted = out["final_output"].cpu().numpy()
+    predicted = out["final_output"].float().cpu().numpy()
     triples = []
     for i, dur in enumerate(durations):
         # final_output[f] predicts mel[1 + f]

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .data.dataset import DataPrepper, Dataset, load_files
+from .ops.normalizers import vocoder_mel
 from .text import default_tokenizer
 from .train.steps import make_autoregressive_val_step
 from .train_autoregressive import to_device
@@ -39,11 +40,12 @@ SPLITS = ("train_metafile.txt", "test_metafile.txt")
 
 def gta_batch(val_step, host, device, r: int) -> list:
     """One host batch (mel, phonemes, stop, spk) -> the teacher-forced
-    prediction of each row, (t, n_mels) in [-4, 4], t its target's frames
-    (the nonzero rows less the start and end frames)."""
+    prediction of each row, (t, n_mels) in [-4, 4] (float32, holding a
+    bf16 model's bf16 values), t its target's frames (the nonzero rows
+    less the start and end frames)."""
     pred = val_step(to_device(host, device), 0, r=r)["final_output"]
-    pred = pred.cpu().numpy()
     lens = (np.abs(host[0]).sum(-1) != 0).sum(-1) - 2
+    pred = pred.float().cpu().numpy()
     return [pred[b, :int(n)] for b, n in enumerate(lens)]
 
 
@@ -99,9 +101,10 @@ def main(argv=None):
                 item_id = next(ids)
                 if gta_dir is not None:
                     np.save(gta_dir / f"{item_id}.npy",
-                            ((raw.T + 4.0) / 8.0).astype(np.float32))
+                            vocoder_mel(torch.from_numpy(raw.T.copy()),
+                                        model.dtype).numpy())
                 if tts_dir is not None:
-                    np.save(tts_dir / f"{item_id}.npy", raw.astype(np.float32))
+                    np.save(tts_dir / f"{item_id}.npy", raw)
                 n += 1
     print(f"wrote {n} GTA mels (step {step}, r = {r}) to "
           + " and ".join(str(d) for d in out_dirs))

@@ -5,6 +5,13 @@ statistics, the teacher-forced ``forward`` / ``decode`` that training runs,
 and the conv blocks' rolling input windows, and the greedy
 ``autoregressive_predict`` with the stop-on-any-of-r-frames rule and the
 two runaway guards.
+
+``dtype`` is the compute dtype (``layers.set_compute_dtype``): bfloat16 is
+etts' mixed precision on float32 parameters, and the decode keeps its KV
+caches, postnet window, feedback frame and output buffer in it, as etts'
+do, so a bf16 model returns a bf16 mel. The decode's cross-attention K/V
+are the plain float32 projection of the encoder output, as etts'
+``_cross_attention_kv`` computes them outside the module.
 """
 from __future__ import annotations
 
@@ -12,17 +19,19 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.masking import (encoder_padding_mask, look_ahead_mask,
                            mel_padding_mask)
-from .layers import (CrossAttentionBlocks, DecoderPrenet, Postnet,
-                     ProsodyStatEncoder, ReferenceEncoderGST,
-                     SelfAttentionBlocks)
+from .layers import (Compute, CrossAttentionBlocks, Dense, DecoderPrenet,
+                     Embedding, Postnet, ProsodyStatEncoder,
+                     ReferenceEncoderGST, SelfAttentionBlocks,
+                     set_compute_dtype)
 
 SYSTEM_TYPES = ("text", "style_text", "speaker_text", "speaker_style_text")
 
 
-class AutoregressiveTransformer(nn.Module):
+class AutoregressiveTransformer(Compute, nn.Module):
     stop_prob_index = 2          # the stop class of the 3-class stop head
 
     def __init__(self, system_type: str = "speaker_style_text",
@@ -51,7 +60,8 @@ class AutoregressiveTransformer(nn.Module):
                  encoder_feed_forward_dimension: int = 1024,
                  decoder_feed_forward_dimension: int = 1024,
                  max_r: int = 10, use_prosody_stats: bool = False,
-                 prosody_embed_dim: int = 32, dropout_rate: float = 0.1):
+                 prosody_embed_dim: int = 32, dropout_rate: float = 0.1,
+                 dtype=torch.float32):
         super().__init__()
         if system_type not in SYSTEM_TYPES:
             raise ValueError(f"system_type must be one of {SYSTEM_TYPES}")
@@ -69,7 +79,7 @@ class AutoregressiveTransformer(nn.Module):
         self.max_r = max_r
         self.use_prosody_stats = use_prosody_stats
 
-        self.TextEmbedding = nn.Embedding(vocab_size, encoder_prenet_dimension)
+        self.TextEmbedding = Embedding(vocab_size, encoder_prenet_dimension)
         self.TextEncoder = SelfAttentionBlocks(
             encoder_model_dimension, encoder_feed_forward_dimension,
             encoder_num_heads, encoder_maximum_position_encoding,
@@ -94,10 +104,10 @@ class AutoregressiveTransformer(nn.Module):
             decoder_num_heads, decoder_maximum_position_encoding,
             decoder_dense_blocks, enc_dim, decoder_attention_conv_filters,
             decoder_attention_conv_kernel, dropout_rate=dropout_rate)
-        self.FinalProj = nn.Linear(decoder_model_dimension,
-                                   mel_channels * max_r)
+        self.FinalProj = Dense(decoder_model_dimension, mel_channels * max_r)
         self.Postnet = Postnet(mel_channels, postnet_conv_filters,
                                postnet_conv_layers, postnet_kernel_size)
+        set_compute_dtype(self, dtype)
 
     @property
     def has_style(self) -> bool:
@@ -209,12 +219,15 @@ class AutoregressiveTransformer(nn.Module):
 
     def cross_kv(self, enc_output):
         """Every decoder block's cross-attention K/V, head-split
-        (b, h, n_enc, depth); static during decode."""
+        (b, h, n_enc, depth); static during decode. The plain projection
+        at the parameters' dtype, whatever the compute dtype, as etts'
+        ``_cross_attention_kv`` (`autoregressive.py:285-303`)."""
         out = []
         for block in self.Decoder.blocks():
             mha = block.carn.mha
-            out.append((mha.split(mha.wk(enc_output)),
-                        mha.split(mha.wv(enc_output))))
+            proj = lambda lin: mha.split(F.linear(
+                enc_output.to(lin.weight.dtype), lin.weight, lin.bias))
+            out.append((proj(mha.wk), proj(mha.wv)))
         return out
 
     def init_caches(self, enc_output, max_steps: int):
@@ -225,14 +238,21 @@ class AutoregressiveTransformer(nn.Module):
         b = enc_output.shape[0]
         d = self.decoder_model_dimension
         rf = 2 * (self.Decoder.conv_kernel - 1)
+        dt = self.state_dtype(enc_output)
         caches = []
         for i, (h, (ck, cv)) in enumerate(zip(self.decoder_num_heads,
                                               self.cross_kv(enc_output))):
-            z = enc_output.new_zeros(b, h, max_steps, d // h)
+            z = enc_output.new_zeros(b, h, max_steps, d // h, dtype=dt)
             caches.append({"k": z, "v": z.clone(), "ck": ck, "cv": cv})
             if i >= self.decoder_dense_blocks:
-                caches[-1]["conv"] = enc_output.new_zeros(b, rf, d)
+                caches[-1]["conv"] = enc_output.new_zeros(b, rf, d, dtype=dt)
         return caches
+
+    def state_dtype(self, enc_output) -> torch.dtype:
+        """The dtype of the decode's caches and buffers: the compute dtype
+        at bf16, else the encoder output's (float32, or a test's
+        float64)."""
+        return self.dtype if self.low_precision else enc_output.dtype
 
     def decode_step(self, new_frame, enc_output, cross_mask, caches,
                     index: int, r: int = 1, prenet_dropout: float = 0.5,
@@ -301,9 +321,10 @@ def autoregressive_predict(model: AutoregressiveTransformer, inputs,
     enc, cross_mask, text_attn, gst_attn, gst_tokens, *_ = model.encode(
         inputs, ref_mel, spk_embed)
     caches = model.init_caches(enc, max_steps)
-    window = enc.new_zeros(b, W, mel_ch)
-    out_buf = enc.new_zeros(b, max_steps * r, mel_ch)
-    last = enc.new_full((b, 1, mel_ch), model.mel_start_value)
+    dt = model.state_dtype(enc)
+    window = enc.new_zeros(b, W, mel_ch, dtype=dt)
+    out_buf = enc.new_zeros(b, max_steps * r, mel_ch, dtype=dt)
+    last = enc.new_full((b, 1, mel_ch), model.mel_start_value, dtype=dt)
     stopped = torch.zeros(b, dtype=torch.bool, device=dev)
     lengths = torch.zeros(b, dtype=torch.long, device=dev)
     attn_ctr = torch.zeros(b, dtype=torch.long, device=dev)
@@ -359,12 +380,13 @@ def streaming_decode_init(model: AutoregressiveTransformer, inputs,
     max_steps = int(max_length) // r + 1
     W = model.postnet_conv_layers * (model.postnet_kernel_size - 1) + r
     enc, cross_mask, *_ = model.encode(inputs, ref_mel, spk_embed)
+    dt = model.state_dtype(enc)
     return {"enc": enc, "cross_mask": cross_mask,
             "caches": model.init_caches(enc, max_steps),
             "max_steps": max_steps,
             "last": enc.new_full((b, 1, model.mel_channels),
-                                 model.mel_start_value),
-            "window": enc.new_zeros(b, W, model.mel_channels),
+                                 model.mel_start_value, dtype=dt),
+            "window": enc.new_zeros(b, W, model.mel_channels, dtype=dt),
             "i": 0,
             "stopped": torch.zeros(b, dtype=torch.bool, device=enc.device),
             "lengths": torch.zeros(b, dtype=torch.long, device=enc.device),

@@ -6,6 +6,9 @@ pass. Module names follow the flax tree (``embedding``, ``encoder``,
 ``dur_pred``, ``decoder_prenet``, ``decoder``, ``out``,
 ``decoder_postnet``), so ``etts_torch.convert`` carries the weights over.
 Train mode is the ``train`` argument, as in etts (``models/layers.py``).
+``dtype`` is the compute dtype (``layers.set_compute_dtype``); at bf16 the
+durations leave the duration predictor in bf16 and are promoted to float32
+by the padding mask before they are rounded, as in etts.
 """
 from __future__ import annotations
 
@@ -16,11 +19,12 @@ import torch.nn as nn
 
 from ..ops.expand import regulate_lengths
 from ..ops.masking import encoder_padding_mask, mel_padding_mask
-from .layers import (CNNResNorm, DecoderPrenet, DurationPredictor,
-                     SelfAttentionBlocks)
+from .layers import (CNNResNorm, Compute, Dense, DecoderPrenet,
+                     DurationPredictor, Embedding, SelfAttentionBlocks,
+                     set_compute_dtype)
 
 
-class ForwardTransformer(nn.Module):
+class ForwardTransformer(Compute, nn.Module):
     def __init__(self, encoder_model_dimension: int = 256,
                  decoder_model_dimension: int = 256,
                  decoder_num_heads: Sequence[int] = (4, 4, 4, 4),
@@ -37,9 +41,9 @@ class ForwardTransformer(nn.Module):
                  decoder_attention_conv_kernel: int = 3,
                  encoder_feed_forward_dimension: int = 1024,
                  decoder_feed_forward_dimension: int = 1024,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, dtype=torch.float32):
         super().__init__()
-        self.embedding = nn.Embedding(vocab_size, encoder_model_dimension)
+        self.embedding = Embedding(vocab_size, encoder_model_dimension)
         self.encoder = SelfAttentionBlocks(
             encoder_model_dimension, encoder_feed_forward_dimension,
             encoder_num_heads, encoder_maximum_position_encoding,
@@ -56,11 +60,12 @@ class ForwardTransformer(nn.Module):
             decoder_dense_blocks, decoder_attention_conv_filters,
             decoder_attention_conv_kernel, name_prefix="Decoder",
             dropout_rate=dropout_rate)
-        self.out = nn.Linear(decoder_model_dimension, mel_channels)
+        self.out = Dense(decoder_model_dimension, mel_channels)
         self.decoder_postnet = CNNResNorm(
             mel_channels, mel_channels, postnet_conv_layers,
             postnet_conv_filters, postnet_kernel_size, "tanh", "linear",
             padding="same")
+        set_compute_dtype(self, dtype)
 
     def forward(self, x, target_durations=None, *, max_frames: int,
                 train: bool = False, durations_scalar: float = 1.0,

@@ -13,6 +13,16 @@ Train mode is an explicit ``train`` argument, as in etts, never
 applies its dropout (``dropout_rate``), HeadDrop (``drop_n_heads`` heads
 per row) and BatchNorm on the batch's statistics, moving the running ones
 as flax does; the draws come from the ``generator`` passed down.
+
+Every module here has a compute ``dtype``, as etts' modules have, set for a
+whole model by ``set_compute_dtype``. float32 is the plain path: no casts,
+the parameters' own dtype throughout. bfloat16 is etts' mixed precision:
+the parameters stay float32 and are cast where flax casts them
+(``Dense``, ``Conv1d``, ``Conv2d``, ``Embedding``: inputs, kernel and bias
+in bf16, the bias added to the rounded product), the norms compute in
+float32 and return bf16, the attention's logits and softmax are float32,
+and the reference encoder's GRU sums its gates in float32. No
+``torch.autocast``: its per-op policy is not flax's.
 """
 from __future__ import annotations
 
@@ -32,6 +42,86 @@ BN_MOMENTUM = 0.99     # flax: running = 0.99 * running + 0.01 * batch
 _ACTIVATIONS = {"relu": torch.relu, "tanh": torch.tanh,
                 "linear": lambda x: x}
 
+class Compute:
+    """A module with a compute ``dtype`` (float32: the plain path)."""
+    dtype = torch.float32
+
+    @property
+    def low_precision(self) -> bool:
+        return self.dtype != torch.float32
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Give ``module`` and every ``Compute`` module in it the compute
+    ``dtype``; the parameters keep theirs."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got "
+                         f"{dtype}")
+    for m in module.modules():
+        if isinstance(m, Compute):
+            m.dtype = dtype
+    return module
+
+
+class Dense(Compute, nn.Linear):
+    """flax ``Dense``: at bf16 the input, kernel and bias are cast, the
+    product rounds once, and the bias is added to it in bf16 (one more
+    rounding, where ``F.linear`` would fuse it)."""
+
+    def forward(self, x):
+        if not self.low_precision:
+            return super().forward(x)
+        d = self.dtype
+        return F.linear(x.to(d), self.weight.to(d)) + self.bias.to(d)
+
+
+class Conv1d(Compute, nn.Conv1d):
+    """flax ``Conv`` on (b, c, t), cast as ``Dense``."""
+
+    def forward(self, x):
+        if not self.low_precision:
+            return super().forward(x)
+        d = self.dtype
+        return (self._conv_forward(x.to(d), self.weight.to(d), None)
+                + self.bias.to(d)[:, None])
+
+
+class Conv2d(Compute, nn.Conv2d):
+    """flax ``Conv`` on (b, c, h, w), cast as ``Dense``."""
+
+    def forward(self, x):
+        if not self.low_precision:
+            return super().forward(x)
+        d = self.dtype
+        return (self._conv_forward(x.to(d), self.weight.to(d), None)
+                + self.bias.to(d)[:, None, None])
+
+
+class Embedding(Compute, nn.Embedding):
+    """flax ``Embed``: the table's rows in the compute dtype."""
+
+    def forward(self, ids):
+        x = super().forward(ids)
+        return x.to(self.dtype) if self.low_precision else x
+
+
+class LayerNorm(Compute, nn.LayerNorm):
+    """flax ``LayerNorm``: statistics and normalisation in float32 (at
+    least), the result in the compute dtype."""
+
+    def forward(self, x):
+        if not self.low_precision:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.dtype)
+
+
+class BatchNorm1d(Compute, nn.BatchNorm1d):
+    """A BatchNorm whose compute dtype ``batch_norm`` reads."""
+
+
+class BatchNorm2d(Compute, nn.BatchNorm2d):
+    """A BatchNorm whose compute dtype ``batch_norm`` reads."""
+
 
 def variable_rate_dropout(x, rate: float, generator=None):
     """Inverted dropout that is always applied: keep where u < 1 - rate, u
@@ -39,7 +129,7 @@ def variable_rate_dropout(x, rate: float, generator=None):
     card's x the CPU's draws); rate 0 is the identity and draws nothing."""
     if rate == 0.0:
         return x
-    keep = 1.0 - rate
+    keep = 1.0 - rate   # x / keep rounds once, in x's dtype
     u = torch.rand(x.shape, generator=generator,
                    device=x.device if generator is None
                    else generator.device).to(x.device)
@@ -63,7 +153,10 @@ def head_drop(x, drop_n: int, scores):
         return x
     ranks = scores.argsort(-1).argsort(-1)
     keep = (ranks >= drop_n).to(x.dtype)[:, :, None, None]
-    return x * keep * (h / max(h - drop_n, 1))
+    scale = h / max(h - drop_n, 1)
+    if x.dtype == torch.bfloat16:   # etts rounds the scale to x's dtype
+        scale = torch.tensor(scale, dtype=x.dtype)
+    return x * keep * scale
 
 
 def batch_norm(bn, x, train: bool, momentum: float = BN_MOMENTUM):
@@ -71,7 +164,16 @@ def batch_norm(bn, x, train: bool, momentum: float = BN_MOMENTUM):
     running statistics: those statistics unless ``train``; else the batch's
     (biased variance), and the running ones move by ``momentum`` (flax's:
     running = momentum * running + (1 - momentum) * batch) under no_grad,
-    as flax's mutable ``batch_stats``."""
+    as flax's mutable ``batch_stats``. A ``bn`` of compute dtype bf16
+    normalises (and takes the batch's statistics) in float32 and returns
+    bf16, as flax's ``_normalize`` does."""
+    dtype = getattr(bn, "dtype", torch.float32)
+    if dtype != torch.float32:
+        return _batch_norm(bn, x.float(), train, momentum).to(dtype)
+    return _batch_norm(bn, x, train, momentum)
+
+
+def _batch_norm(bn, x, train: bool, momentum: float):
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
@@ -109,12 +211,33 @@ class _RenormSoftmax(torch.autograd.Function):
 
 
 def attention(q, k, v, mask=None):
-    """q (..., tq, d), k/v (..., tk, d); mask broadcastable, 1 = masked."""
+    """q (..., tq, d), k/v (..., tk, d); mask broadcastable, 1 = masked.
+    A bf16 q takes etts' mixed path (`etts/ops/attention.py`): float32
+    logits of the bf16 operands, float32 softmax (the weights returned),
+    the weights cast to bf16 for the value product, which sums in float32
+    and rounds once to bf16."""
+    if q.dtype == torch.bfloat16:
+        logits = q.float() @ k.float().transpose(-1, -2) / (k.shape[-1]
+                                                            ** 0.5)
+        if mask is not None:
+            logits = logits + mask * -1e9
+        w = _RenormSoftmax.apply(logits)
+        return (w.to(q.dtype).float() @ v.float()).to(q.dtype), w
     logits = q @ k.transpose(-1, -2) / (k.shape[-1] ** 0.5)
     if mask is not None:
         logits = logits + mask * -1e9
     w = _RenormSoftmax.apply(logits)
     return w @ v, w
+
+
+def scaled_positions(x, pe, model_dim: int):
+    """x * sqrt(model_dim) + pe; a bf16 x takes sqrt(model_dim) and the
+    table rounded to bf16, each step rounding, as etts
+    (`layers.py:288-289, :441-442`)."""
+    if x.dtype == torch.bfloat16:
+        return (x * torch.tensor(model_dim ** 0.5, dtype=x.dtype)
+                + pe.to(x.dtype))
+    return x * (model_dim ** 0.5) + pe
 
 
 class MultiHeadAttention(nn.Module):
@@ -128,10 +251,10 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"model_dim {model_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.model_dim, self.num_heads = model_dim, num_heads
-        self.wq = nn.Linear(q_dim, model_dim)
-        self.wk = nn.Linear(kv_dim, model_dim)
-        self.wv = nn.Linear(kv_dim, model_dim)
-        self.dense = nn.Linear(q_dim + model_dim, model_dim)
+        self.wq = Dense(q_dim, model_dim)
+        self.wk = Dense(kv_dim, model_dim)
+        self.wv = Dense(kv_dim, model_dim)
+        self.dense = Dense(q_dim + model_dim, model_dim)
 
     def split(self, x):
         b, t, _ = x.shape
@@ -170,10 +293,10 @@ class FFNResNorm(nn.Module):
     def __init__(self, model_dim: int, hidden: int, dropout_rate: float = 0.0):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.d1 = nn.Linear(model_dim, hidden)
-        self.d2 = nn.Linear(hidden, model_dim)
-        self.ln = nn.LayerNorm(model_dim, eps=LN_EPS)
-        self.last_ln = nn.LayerNorm(model_dim, eps=LN_EPS)
+        self.d1 = Dense(model_dim, hidden)
+        self.d2 = Dense(hidden, model_dim)
+        self.ln = LayerNorm(model_dim, eps=LN_EPS)
+        self.last_ln = LayerNorm(model_dim, eps=LN_EPS)
 
     def forward(self, x, train=False, generator=None):
         y = torch.relu(self.ln(self.d2(self.d1(x))))
@@ -190,8 +313,8 @@ class SelfAttentionResNorm(nn.Module):
         self.dropout_rate = dropout_rate
         self.mha = MultiHeadAttention(model_dim, num_heads, model_dim,
                                       model_dim)
-        self.ln = nn.LayerNorm(model_dim, eps=LN_EPS)
-        self.last_ln = nn.LayerNorm(model_dim, eps=LN_EPS)
+        self.ln = LayerNorm(model_dim, eps=LN_EPS)
+        self.last_ln = LayerNorm(model_dim, eps=LN_EPS)
 
     def forward(self, x, mask, cache=None, cache_index=None, train=False,
                 drop_n_heads=0, generator=None):
@@ -211,7 +334,7 @@ class CrossAttentionResnorm(nn.Module):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.mha = MultiHeadAttention(model_dim, num_heads, model_dim, enc_dim)
-        self.layernorm = nn.LayerNorm(model_dim, eps=LN_EPS)
+        self.layernorm = LayerNorm(model_dim, eps=LN_EPS)
 
     def forward(self, q, enc, mask, kv=None, train=False, drop_n_heads=0,
                 generator=None):
@@ -337,8 +460,8 @@ class SelfAttentionBlocks(nn.Module):
     def forward(self, x, padding_mask, train=False, drop_n_heads=0,
                 generator=None, reduction_factor: int = 1):
         r = reduction_factor
-        x = (x * (self.model_dim ** 0.5)
-             + self.pos_encoding[:x.shape[1] * r:r])
+        x = scaled_positions(x, self.pos_encoding[:x.shape[1] * r:r],
+                             self.model_dim)
         x = dropout(x, self.dropout_rate, train, generator)
         weights = {}
         for name, key in self.attention_keys.items():
@@ -387,8 +510,8 @@ class CrossAttentionBlocks(nn.Module):
         {"Decoder_DenseBlock{i}_CrossAttention" or
         "Decoder_ConvBlock{j}_CrossAttention": each block's cross-attention
         (b, h, T, n_enc)}), numbered from 1, etts' keys."""
-        x = (x * (self.model_dim ** 0.5)
-             + self.pos_encoding[:x.shape[1] * r:r])
+        x = scaled_positions(x, self.pos_encoding[:x.shape[1] * r:r],
+                             self.model_dim)
         x = dropout(x, self.dropout_rate, train, generator)
         weights = {}
         for i, block in enumerate(self.blocks()):
@@ -402,7 +525,7 @@ class CrossAttentionBlocks(nn.Module):
     def step(self, x, enc, cross_mask, caches, index: int, r: int):
         """One incremental step (x: (b, 1, d)) at position ``index * r``.
         Returns (x, last block's cross-attention (b, h, 1, n_enc))."""
-        x = x * (self.model_dim ** 0.5) + self.pos_encoding[index * r]
+        x = scaled_positions(x, self.pos_encoding[index * r], self.model_dim)
         w = None
         for block, cache in zip(self.blocks(), caches):
             x, w = block(x, enc, None, cross_mask, cache, index)
@@ -415,8 +538,8 @@ class DecoderPrenet(nn.Module):
 
     def __init__(self, mel_channels: int, hidden: int, model_dim: int):
         super().__init__()
-        self.d1 = nn.Linear(mel_channels, hidden)
-        self.d2 = nn.Linear(hidden, model_dim)
+        self.d1 = Dense(mel_channels, hidden)
+        self.d2 = Dense(hidden, model_dim)
 
     def forward(self, x, rate: float, generator=None):
         x = variable_rate_dropout(torch.relu(self.d1(x)), rate, generator)
@@ -451,14 +574,14 @@ class CNNResNorm(nn.Module):
         self.layer_norm = normalization == "layer"
 
         def norm(c):
-            return (nn.LayerNorm(c, eps=LN_EPS) if self.layer_norm
-                    else nn.BatchNorm1d(c, eps=BN_EPS))
+            return (LayerNorm(c, eps=LN_EPS) if self.layer_norm
+                    else BatchNorm1d(c, eps=BN_EPS))
         c = in_size
         for i in range(n_layers - 1):
-            self.add_module(f"conv_{i}", nn.Conv1d(c, hidden_size, k))
+            self.add_module(f"conv_{i}", Conv1d(c, hidden_size, k))
             self.add_module(f"norm_{i}", norm(hidden_size))
             c = hidden_size
-        self.last_conv = nn.Conv1d(c, out_size, k)
+        self.last_conv = Conv1d(c, out_size, k)
         self.norm_last = norm(out_size)
         self.norm_out = norm(out_size)
 
@@ -486,7 +609,7 @@ class Postnet(nn.Module):
     def __init__(self, mel_channels: int, conv_filters: int, conv_layers: int,
                  kernel_size: int):
         super().__init__()
-        self.stop_linear = nn.Linear(mel_channels, 3)
+        self.stop_linear = Dense(mel_channels, 3)
         self.conv_blocks = CNNResNorm(mel_channels, mel_channels, conv_layers,
                                       conv_filters, kernel_size, "tanh",
                                       padding="causal")
@@ -496,7 +619,7 @@ class Postnet(nn.Module):
                 "stop_prob": self.stop_linear(x)}
 
 
-class ReferenceEncoderGST(nn.Module):
+class ReferenceEncoderGST(Compute, nn.Module):
     """GST reference encoder: strided Conv2D+BN+relu stack -> GRU -> tanh
     projection -> MHA over the tanh'd style-token bank (`layers.py:511-569`).
     Flax's stride-2 ``SAME`` padding puts the extra pad on the high side, so
@@ -511,15 +634,15 @@ class ReferenceEncoderGST(nn.Module):
         self.n_conv = len(conv_filters)
         c, m = 1, mel_channels
         for i, f in enumerate(conv_filters):
-            self.add_module(f"conv_{i}", nn.Conv2d(c, f, kernel_size, strides))
-            self.add_module(f"bn_{i}", nn.BatchNorm2d(f, eps=BN_EPS))
+            self.add_module(f"conv_{i}", Conv2d(c, f, kernel_size, strides))
+            self.add_module(f"bn_{i}", BatchNorm2d(f, eps=BN_EPS))
             c, m = f, -(-m // strides)
         g = gru_cell_units
         self.gru_wi = nn.Parameter(torch.zeros(m * c, 3 * g))
         self.gru_wh = nn.Parameter(torch.zeros(g, 3 * g))
         self.gru_bi = nn.Parameter(torch.zeros(3 * g))
         self.gru_bh = nn.Parameter(torch.zeros(3 * g))
-        self.rnn_proj = nn.Linear(g, g)
+        self.rnn_proj = Dense(g, g)
         self.gst_tokens = nn.Parameter(
             torch.zeros(gst_heads, gst_style_embed_dim // multi_num_heads))
         self.mha = MultiHeadAttention(gst_style_embed_dim, multi_num_heads, g,
@@ -542,9 +665,16 @@ class ReferenceEncoderGST(nn.Module):
             x = getattr(self, f"conv_{i}")(F.pad(x, pm + pt))
             x = torch.relu(batch_norm(getattr(self, f"bn_{i}"), x, train))
         x = x.permute(0, 2, 3, 1).reshape(b, x.shape[2], -1)
-        _, h = gru_scan(self.gru_wi, self.gru_wh, self.gru_bi, self.gru_bh, x)
+        gru = [self.gru_wi, self.gru_wh, self.gru_bi, self.gru_bh]
+        tokens = self.gst_tokens
+        if self.low_precision:
+            # the float32 parameters cast to bf16 (``gru_scan`` then sums
+            # the gates in float32 and rounds h once a step)
+            gru, x = [p.to(self.dtype) for p in gru], x.to(self.dtype)
+            tokens = tokens.to(self.dtype)
+        _, h = gru_scan(*gru, x)
         ref = torch.tanh(self.rnn_proj(h))[:, None]
-        bank = torch.tanh(self.gst_tokens)[None].expand(b, -1, -1)
+        bank = torch.tanh(tokens)[None].expand(b, -1, -1)
         out, attn = self.mha(bank, bank, ref, train=train,
                              drop_n_heads=drop_n_heads, generator=generator)
         return out, {"gst_attention": attn}, {"GST_tokens": self.gst_tokens}
@@ -560,7 +690,7 @@ class DurationPredictor(nn.Module):
         self.conv_blocks = CNNResNorm(model_dim, model_dim, 2, model_dim, 3,
                                       "relu", "relu", padding="same",
                                       normalization="layer")
-        self.linear = nn.Linear(model_dim, 1)
+        self.linear = Dense(model_dim, 1)
 
     def forward(self, x, train=False):
         return torch.relu(self.linear(self.conv_blocks(x, train)))
@@ -579,7 +709,7 @@ class ProsodyStatEncoder(nn.Module):
 
     def __init__(self, embed_dim: int = 32):
         super().__init__()
-        self.proj = nn.Linear(6, embed_dim)
+        self.proj = Dense(6, embed_dim)
 
     def forward(self, mel):
         m = mel.detach().float()

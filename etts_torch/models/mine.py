@@ -140,6 +140,15 @@ def _pair_width(pair_type: str, text_dim: int, style_dim: int,
     return sum(widths[p] for p in pair_type.split("_"))
 
 
+def _at_params(net: nn.Module, *embeds):
+    """The embeddings in the net's parameter dtype: the zoo stays float32
+    under a bf16 TTS model, whose bf16 embeddings its Dense layers cast to
+    float32, as etts builds the zoo with no dtype
+    (`scripts/train_autoregressive.py:45, :54`)."""
+    dt = next(net.parameters()).dtype
+    return tuple(None if e is None else e.to(dt) for e in embeds)
+
+
 class MINE(nn.Module):
     """MI lower bound over one embedding pair (`etts/models/mine.py:136-166`):
     the critic ``MineNet`` on the joint and the marginal pairs, then
@@ -173,6 +182,8 @@ class MINE(nn.Module):
     def forward(self, text_embed, style_embed, speaker_embed, state: MIState,
                 draws: PairDraws):
         """-> (mi, new exp_terms)."""
+        text_embed, style_embed, speaker_embed = _at_params(
+            self, text_embed, style_embed, speaker_embed)
         joint, marginal = build_pairs(self.pair_type, text_embed, style_embed,
                                       speaker_embed, draws)
         return measure_mi(self.MineNet(joint), self.MineNet(marginal),
@@ -203,6 +214,8 @@ class CLUB(nn.Module):
 
     def forward(self, text_embed, style_embed, speaker_embed, state: MIState,
                 draws: PairDraws):
+        text_embed, style_embed, speaker_embed = _at_params(
+            self, text_embed, style_embed, speaker_embed)
         text, text_shuf = _pick(text_embed, draws)
         if self.pair_type == "style_text":
             cond, pos, neg = style_embed, text, text_shuf

@@ -138,13 +138,21 @@ def can_fuse(model) -> bool:
             and all(x % 4 == 0 for x in widths))
 
 
+def _project(lin, e):
+    """The float32 projection of the encoder output, whatever the model's
+    compute dtype (the cross-attention K/V of etts' decode)."""
+    return F.linear(e, lin.weight.float(), lin.bias.float())
+
+
 @torch.no_grad()
 def decode_weights(model, enc_output, r: int,
                    dtype=torch.bfloat16) -> DecodeWeights:
     """Gather an ``AutoregressiveTransformer``'s decoder weights for the
     kernel (port of ``build_decode_inputs``, `decoder_step.py:307-442`):
     QKV fused, BatchNorm folded to scale/shift (inference semantics, eps
-    1e-3), cross-attention K/V projected from ``enc_output`` (1, n, enc)."""
+    1e-3), cross-attention K/V projected from ``enc_output`` (1, n, enc)
+    in float32 (a bf16 model's encoder output too, as etts' fused decode
+    reads it)."""
     if not can_fuse(model):
         raise ValueError("fused decode needs all-dense decoder blocks with a "
                          "uniform head count of depth a multiple of 8, "
@@ -215,8 +223,8 @@ def decode_weights(model, enc_output, r: int,
         f2=stack(lambda b: b.ffn.d2.weight, mat),
         bf2=stack(lambda b: b.ffn.d2.bias, vec),
         lns=stack(lns("weight"), vec), lnb=stack(lns("bias"), vec),
-        ck=stack(lambda b: b.carn.mha.wk(e), mat),
-        cv=stack(lambda b: b.carn.mha.wv(e), mat),
+        ck=stack(lambda b: _project(b.carn.mha.wk, e), mat),
+        cv=stack(lambda b: _project(b.carn.mha.wv, e), mat),
         fpw=mat(model.FinalProj.weight[:r * mel]),
         fpb=vec(model.FinalProj.bias[:r * mel]),
         pc0=mat(conv_w(convs[0])),

@@ -11,7 +11,15 @@ import torch
 __all__ = ["MelGAN", "WaveRNNNorm", "get_normalizer", "mu_law_encode",
            "mu_law_decode", "float_to_label",
            "amp_to_db", "db_to_amp", "normalize_db", "denormalize_db",
-           "preemphasis", "deemphasis"]
+           "preemphasis", "deemphasis", "vocoder_mel"]
+
+
+def vocoder_mel(mel: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """A TTS mel in [-4, 4] -> the vocoder's (mel + 4) / 8 in [0, 1],
+    float32. The arithmetic runs in ``dtype``, the dtype the mel was made
+    in: a bf16 model's mel rounds (mel + 4) to bf16, as etts' numpy bf16
+    arithmetic on it does (`etts/api.py:275`)."""
+    return ((mel.to(dtype) + 4.0) / 8.0).float()
 
 
 def amp_to_db(x):

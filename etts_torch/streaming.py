@@ -28,7 +28,7 @@ from .models.autoregressive import (AutoregressiveTransformer,
 from .models.wavernn import (WaveRNN, _clamp_mels, _conditioning_streams,
                              _default_weights)
 from .ops.kernels.wavernn_cell import init_state, wavernn_sample_loop
-from .ops.normalizers import mu_law_decode
+from .ops.normalizers import mu_law_decode, vocoder_mel
 
 __all__ = ["stream_mel", "stream_vocode", "stream_synthesize"]
 
@@ -51,7 +51,19 @@ def stream_mel(model: AutoregressiveTransformer, inputs, ref_mel=None,
     overlaps the next chunk's device work, and decodes one chunk past the
     stop; here the decode reads the flags on the host at every step anyway
     (``make_chunk_decoder``), so the lag would only delay every chunk by
-    one chunk's decode. The frames are the same."""
+    one chunk's decode. The frames are the same. A bf16 model's chunks
+    hold its bf16 values, as float32."""
+    for mel in _mel_chunks(model, inputs, ref_mel, spk_embed, chunk=chunk,
+                           r=r, max_length=max_length,
+                           prenet_dropout=prenet_dropout,
+                           generator=generator):
+        yield mel.float().cpu().numpy()
+
+
+def _mel_chunks(model, inputs, ref_mel, spk_embed, *, chunk, r, max_length,
+                prenet_dropout, generator) -> Iterator[torch.Tensor]:
+    """``stream_mel``'s chunks as tensors on the device, in the model's
+    compute dtype."""
     state = streaming_decode_init(model, inputs, ref_mel, spk_embed, r=r,
                                   max_length=max_length, generator=generator)
     dec = make_chunk_decoder(model, chunk=chunk, r=r,
@@ -62,7 +74,7 @@ def stream_mel(model: AutoregressiveTransformer, inputs, ref_mel=None,
         state, out = dec(state)
         end = (int(state["lengths"][0]) if bool(state["stopped"].all())
                else min(state["i"], max_steps) * r)
-        yield out[0, :end - start].cpu().numpy()
+        yield out[0, :end - start]
 
 
 def _chunk_contexts(mel_chunks, chunk_frames: int, pad: int, n_mels: int,
@@ -163,12 +175,15 @@ def stream_synthesize(tts_model: AutoregressiveTransformer,
     samples (`etts/streaming.py:241-263`). The decode's dropout draws from a
     generator seeded with ``seed`` on the inputs' device, the vocoder's
     sample loop from ``seed + 1`` (etts splits one key in two). Between the
-    stages the TTS mels in [-4, 4] become the vocoder's (mel + 4) / 8."""
+    stages the TTS mels in [-4, 4] become the vocoder's (mel + 4) / 8,
+    computed on the device in the mel's dtype (bf16 for a bf16 model, as
+    etts computes it)."""
     gen = torch.Generator(inputs.device).manual_seed(seed)
-    mels = stream_mel(tts_model, inputs, ref_mel, spk_embed,
-                      chunk=mel_chunk, r=r, max_length=max_length,
-                      prenet_dropout=prenet_dropout, generator=gen)
-    yield from stream_vocode(voc_model, ((m + 4.0) / 8.0 for m in mels),
+    mels = _mel_chunks(tts_model, inputs, ref_mel, spk_embed,
+                       chunk=mel_chunk, r=r, max_length=max_length,
+                       prenet_dropout=prenet_dropout, generator=gen)
+    yield from stream_vocode(voc_model, (vocoder_mel(m, m.dtype)
+                                         for m in mels),
                              chunk_frames=mel_chunk * r, mu_law=mu_law,
                              seed=seed + 1, int8_weights=int8_weights,
                              weights=voc_weights)

@@ -87,6 +87,7 @@ def main(argv=None):
     import torch
 
     from .api import TTSSynthesizer, VocoderSynthesizer
+    from .ops.normalizers import vocoder_mel
     from .utils.precision import pin_float32
     pin_float32()
     tts = TTSSynthesizer(a.tts_config, a.tts_weights, a.device,
@@ -107,8 +108,9 @@ def main(argv=None):
                           attn_stop_patience=a.attn_stop_patience,
                           max_frames_per_token=a.frames_per_token)["mel"]
         if voc is not None:
-            wav = voc.generate((mel + 4.0) / 8.0, seed=a.seed + i,
-                               int8_weights=a.int8 or None)
+            wav = voc.generate(
+                vocoder_mel(torch.from_numpy(mel), tts.mel_dtype).numpy(),
+                seed=a.seed + i, int8_weights=a.int8 or None)
         else:
             wav = tts.audio.reconstruct_waveform(
                 torch.from_numpy(mel.T).to(tts.device), n_iter=32)

@@ -3,7 +3,7 @@
 
     python -m etts_torch.train_autoregressive --config DIR \\
         [--session_name NAME] [--reset_dir --force] [--max_steps N] \\
-        [--gta_mel_dir DIR] [--device cuda|cpu]
+        [--gta_mel_dir DIR] [--profile_dir DIR] [--device cuda|cpu]
 
 ``DIR`` holds ``data_config.yaml`` and ``autoregressive_config.yaml``; the
 corpus under ``train_data_directory`` (else ``data_directory``) is what
@@ -19,7 +19,15 @@ optimizer, the step and the MI state go to the session's
 resumes from the latest (``restored TTS weights at step N``), the data
 stream continued. Scalars go to ``autoregressive_logs/scalars.jsonl``
 (``etts_torch.utils.logging``), with the step's and the zoo's times: the
-driver synchronises the device around each to time it.
+driver synchronises the device around each to time it. At
+``prediction_frequency`` the driver decodes the batch's first text and
+keeps its mel there (``prediction_mel_{step}.npy``), and, from
+``audio_start_step`` at ``audio_prediction_frequency``, its Griffin-Lim
+audio (``prediction_audio_{step}.wav``, ``ops.audio``).
+``--profile_dir`` writes a ``torch.profiler`` trace of steps start + 10 to
+start + 30 there (``utils.logging.StepTrace``). The config's ``precision``
+sets the model's compute dtype (``utils.config.build_tts``); the weights,
+the optimizer and the checkpoints stay float32.
 
 Every random draw of a step comes from generators seeded from
 ``fold_in(42, step)``: a resumed run draws what an uninterrupted one does.
@@ -29,6 +37,7 @@ above 1e4, raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -39,6 +48,7 @@ from .data.dataset import (DataPrepper, Dataset, GTADataPrepper, Prefetcher,
 from .models.autoregressive import autoregressive_predict
 from .models.init import init_flax
 from .models.mine import CLUB, MINE, MIState
+from .ops.audio import AudioProcessor
 from .text import default_tokenizer
 from .train.state import FROZEN_PRETRAINED, TrainState
 from .train.steps import (fold_in, frozen_batch_stats, generator,
@@ -47,7 +57,7 @@ from .train.steps import (fold_in, frozen_batch_stats, generator,
 from .utils.checkpoints import CheckpointManager
 from .utils.config import (ConfigManager, build_tts,
                            piecewise_linear_schedule, step_schedule)
-from .utils.logging import ScalarLog, ValueWindow
+from .utils.logging import ScalarLog, StepTrace, ValueWindow
 from .utils.precision import pin_float32
 
 SEED = 42               # etts' PRNGKey(42)
@@ -108,6 +118,9 @@ def main(argv=None):
                         help="dir of a frozen checkpoint's teacher-forced "
                         "mels: the decoder reads these, the targets and the "
                         "style reference stay ground truth")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of steps "
+                        "start + 10 to start + 30 here")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
     pin_float32()
@@ -216,6 +229,9 @@ def main(argv=None):
             mine_dataset.seek(start_step)
     loader = Prefetcher(dataset)
     sync_every = int(config.get("metrics_sync_frequency", 10))
+    trace = (StepTrace(args.profile_dir, start_step + 10, start_step + 30,
+                       device) if args.profile_dir else None)
+    audio = None            # the Griffin-Lim of the prediction audio
     try:
         for step in range(start_step, max_steps):
             host_batch = loader.next_batch()
@@ -229,11 +245,13 @@ def main(argv=None):
                        if ss_enabled else 0.0)
             sync()
             t0 = time.perf_counter()
-            metrics, aux = train_step(
-                state, batch, mi_state if adversarial else mi_state.mi_loss,
-                rng, r=r, prenet_dropout=prenet_dropout,
-                drop_n_heads=drop_n, ss_rate=ss_rate)
-            sync()
+            with (trace.span(step) if trace else contextlib.nullcontext()):
+                metrics, aux = train_step(
+                    state, batch,
+                    mi_state if adversarial else mi_state.mi_loss, rng, r=r,
+                    prenet_dropout=prenet_dropout, drop_n_heads=drop_n,
+                    ss_rate=ss_rate)
+                sync()
             t1 = time.perf_counter()
             log.add_scalar("time/step_ms", (t1 - t0) * 1e3, step)
             mel = host_batch[0]
@@ -315,14 +333,26 @@ def main(argv=None):
                     spk_in, r=r, max_length=min(mel.shape[1] * 2, 1000),
                     prenet_dropout=prenet_dropout,
                     generator=generator(fold_in(rng, 9), device))
-                log.save_mel(out["mel"][0, :out["mel_length"]].cpu().numpy(),
-                             "prediction/mel", step)
+                pred = out["mel"][0, :out["mel_length"]].float()
+                log.save_mel(pred.cpu().numpy(), "prediction/mel", step)
+                if (step + 1 >= config.get("audio_start_step", 0)
+                        and (step + 1) % config.get(
+                            "audio_prediction_frequency", 10 ** 9) == 0):
+                    if audio is None:
+                        audio = AudioProcessor(config)
+                    log.add_audio("prediction/audio",
+                                  audio.reconstruct_waveform(pred.T).cpu(),
+                                  config["sampling_rate"], step)
+            if trace:
+                trace.end_step(step)
         if device.type == "cuda":
             log.add_scalar("meta/max_memory_allocated",
                            torch.cuda.max_memory_allocated(device),
                            max_steps - 1)
     finally:
         loader.stop()
+        if trace:
+            trace.close()
     print("Done.")
 
 

@@ -17,9 +17,10 @@ import yaml
 from ..text import Pipeline, default_tokenizer
 from .checkpoints import CheckpointManager
 
-__all__ = ["load_config", "text_pipeline", "build_tts", "build_forward",
-           "build_vocoder", "build_tacotron", "schedule_values", "step_schedule",
-           "piecewise_linear_schedule", "ConfigManager"]
+__all__ = ["load_config", "text_pipeline", "compute_dtype", "build_tts",
+           "build_forward", "build_vocoder", "build_tacotron",
+           "schedule_values", "step_schedule", "piecewise_linear_schedule",
+           "ConfigManager"]
 
 
 def _read_yaml(path) -> dict:
@@ -203,11 +204,23 @@ def schedule_values(config: dict, step: int) -> dict:
             if "decoder_prenet_dropout_schedule" in config else 0.0}
 
 
+def compute_dtype(config: dict):
+    """The compute dtype of the config's ``precision`` (float32 where it
+    has none; "bfloat16" and "bf16" are bf16 compute on float32 parameters,
+    `etts/utils/config.py:148-153`); another value raises ``KeyError``, as
+    etts' lookup does."""
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "bf16": torch.bfloat16}[config.get("precision", "float32")]
+
+
 def build_tts(config: dict, vocab_size: int):
+    """The AR TTS model of ``autoregressive_config.yaml`` (merged with the
+    data config), at the compute dtype of its ``precision``."""
     from ..models.autoregressive import AutoregressiveTransformer
     c = config
     return AutoregressiveTransformer(
-        system_type=c["system_type"],
+        system_type=c["system_type"], dtype=compute_dtype(c),
         mel_channels=c["mel_channels"],
         encoder_model_dimension=c["encoder_model_dimension"],
         decoder_model_dimension=c["decoder_model_dimension"],
@@ -251,11 +264,12 @@ def build_forward(config: dict, vocab_size: int, dropout_rate: float = 0.1):
     """The forward (duration) model of ``forward_config.yaml``
     (``etts/utils/config.py:194-215``). As etts, it does not read the
     config's ``dropout_rate``: the model's dropout is etts' default 0.1
-    unless the caller passes another."""
+    unless the caller passes another. Its compute dtype is the config's
+    ``precision``'s."""
     from ..models.forward import ForwardTransformer
     c = config
     return ForwardTransformer(
-        mel_channels=c["mel_channels"],
+        dtype=compute_dtype(c), mel_channels=c["mel_channels"],
         encoder_model_dimension=c["encoder_model_dimension"],
         decoder_model_dimension=c["decoder_model_dimension"],
         encoder_num_heads=tuple(c["encoder_num_heads"]),
