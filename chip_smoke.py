@@ -145,7 +145,21 @@ Phases (any failure exits non-zero and prints no result line):
      against float32; ``train_autoregressive`` in bf16 with
      ``--profile_dir`` and Griffin-Lim prediction audio, and
      ``train_forward`` in bf16, beside phases 9's and 11's float32 runs;
-     one AR and one forward bf16 step, card against CPU.
+     one AR and one forward bf16 step, card against CPU;
+  15. the evaluation suite (eval_phase) on the corpus the 14k export was
+     trained on, rebuilt by ``python -m etts_torch.make_synth_corpus`` and
+     ``create_dataset``: the char-CTC transcriber trained on the card
+     (``train_ctc_asr``; its step card against CPU in float64), the
+     held-out sentences through ``synthesize_speaker`` in regimes syn_norm
+     and rand (B2 and B1, launches read around it), one with ``--int8``
+     (B3) and syn_norm through Griffin-Lim, scored by
+     ``objective_measure`` (MCD, FD, F0-RMSE, STOI, PESQ_proxy, WER)
+     beside etts' recorded row, ``export_gst_embeddings``,
+     ``eval_disentanglement`` (fresh MINE and CLUB critics, the
+     first-token probe) and ``eval_expressive_control`` (its verdicts).
+
+Phases 13 and 15 run in a process of their own (``--side``) beside phase
+12; their lines are printed when it ends.
 
 The port computes in float32 without TF32 (``utils/precision.py``), as
 every entry point sets it, except where a config asks for ``precision:
@@ -288,7 +302,12 @@ FT_TEXT = "Hello there."
 # train step against the CPU's on VT_CPU_ROWS crops; the driver's steps (a
 # run, then resumed) and its checkpoint cadence; make_gta card against CPU
 # on VT_CPU_ROWS rows within VT_GTA_TOL (max |d| of the [0, 1] mels); the
-# GTA run's steps and batch; the deterministic runs' steps
+# GTA run's steps and batch; the deterministic runs' steps (a multiple of
+# VT_CKPT, so that the in-process run has a checkpoint at that step; cut
+# from 20 to make room for phase 15, the bars unchanged). The one-step
+# check needs an export trained this far: the float32-activation control
+# read 4.1e-2 against the 1.5e-2 bar at step 30, 1.6-1.8e-2 at step 20
+# and 9.8e-3 (cleared) at step 12 on the H100
 VT_UTTS = 72
 VT_SECONDS = (1.0, 3.0)
 VT_CPU_ROWS = 2
@@ -297,7 +316,7 @@ VT_CKPT = 10
 VT_GTA_TOL = 1e-5
 VT_GTA_STEPS = 5
 VT_GTA_BATCH = 16
-VT_DET_STEPS = 20
+VT_DET_STEPS = 10
 # the trained export's one-step check (one_step_check in MOL on the
 # conditioning of its test utterances): steps, the bar of the kernel's
 # state and the margin of its share of samples within STEP_TOL of the
@@ -380,6 +399,36 @@ BF16_FWD_STEPS = 5
 # phase 9's float32 run (median ms/step, target frames/s, peak GiB),
 # printed beside phase 14's bf16 run
 F32_TRAIN = {}
+# phase 15: the evaluation suite on the corpus the 14k export was trained
+# on (make_synth_corpus at its defaults: EV_UTTS utterances, seed 0; the
+# store's split holds out 20). Cuts: the char-CTC transcriber on
+# EV_CTC_UTTS training utterances (from all) for EV_CTC_STEPS steps (from
+# 600; 200 took 55-82 s in its process of its own, where the rest of the
+# phase that runs beside it takes about 45), its card-CPU float64 step on
+# EV_CTC_CPU_ROWS of them at phase 11's FT_* bars, its float32 step timed
+# over EV_CTC_TIMED steps;
+# EV_SENTENCES held-out sentences a regime (from 20), at most
+# EV_MAX_LENGTH frames each; the fresh critics EV_CRITIC_STEPS steps (from
+# 600) on EV_BATCHES batches (from 16), one seed (from 3); expressive
+# control on EV_EXPR_UTTS sentences (from 6). The export's step sets r and
+# the prenet dropout from the corpus's schedules
+EV_UTTS = 300
+EV_STEP = 14000
+EV_CTC_UTTS = 64
+EV_CTC_STEPS = 120
+EV_CTC_CPU_ROWS = 8
+EV_CTC_TIMED = 5
+EV_SENTENCES = 6
+EV_MAX_LENGTH = 600        # eval_soak.py's cap, which etts' record used
+EV_CRITIC_STEPS = 100
+EV_BATCHES = 4
+EV_EXPR_UTTS = 2
+# etts' own record of this evaluation (a TPU run), printed beside
+EV_ETTS_CURVE = ROOT / "artifacts/soak/eval_curve.csv"
+# phases 13 and 15 run in a process of their own beside phase 12 (each
+# phase host-bound, the card idle most of the time); the seconds that
+# process may run on once phase 12 has ended
+SIDE_TIMEOUT = 300
 
 
 def card() -> str:
@@ -1676,7 +1725,10 @@ def forward_train_phase(cl, voc, failures):
         say(cl, line)
         if not (d_loss <= loss_tol and worst[0] <= rtol
                 and d_stats <= FT_STATS_TOL and vs64 <= FT_GRAD_RTOL):
-            failures.append(f"forward train step, card vs CPU ({dt})")
+            failures.append(f"forward train step, card vs CPU ({dt}): loss "
+                            f"{d_loss:.2e}, gradient {worst[0]:.2e} "
+                            f"({worst[1]}), statistics {d_stats:.2e}, "
+                            f"against float64 {vs64:.2e}")
     # the float32 step again with other softmaxes in the attention
     # (models/layers.py::attention), against the CPU's float64 step: in
     # float64 on the card (what is left of the float32 rounding once the
@@ -3370,6 +3422,436 @@ def bf16_phase(cl, tts32, voc, ref_mel, spk, batch_s, failures):
     return paths
 
 
+def _ctc_step_check(cl, pairs, sr, failures):
+    """The char-CTC train step card against CPU in float64 from one init and
+    batch (EV_CTC_CPU_ROWS utterances) at phase 11's FT_* bars."""
+    import torch
+    from etts_torch.evalsuite.ctc_asr import (CTCAsrModel, ctc_loss,
+                                              prepare_batch)
+
+    def grads(where, batch, dtype):
+        model = CTCAsrModel().reset_parameters(
+            torch.Generator().manual_seed(0)).to(where, dtype)
+        batch = [b.to(where) for b in batch]
+        batch[0] = batch[0].to(dtype)
+        loss = ctc_loss(model, *batch)
+        loss.backward()
+        return (float(loss.detach()), [n for n, _ in model.named_parameters()],
+                [p.grad.detach().cpu() for p in model.parameters()])
+    host = prepare_batch(pairs[:EV_CTC_CPU_ROWS], sr, 40, "cpu")
+    (l_g, names, g_g), (l_c, _, g_c) = (grads(w, host, torch.float64)
+                                        for w in ("cuda", "cpu"))
+    worst = worst_grad(names, g_g, g_c, FT_GRAD_ATOL)
+    say(cl, f"char-CTC train step in float64, card vs CPU ({len(host[1])} "
+            f"utterances, mels {tuple(host[0].shape)}): loss {l_g:.6f} vs "
+            f"{l_c:.6f} (|d| / loss {abs(l_g - l_c) / abs(l_c):.3e}, tol "
+            f"{FT_LOSS_TOL}); worst gradient {worst[1]}: (||d|| - "
+            f"{FT_GRAD_ATOL}) / ||g|| {worst[0]:.3e} (tol {FT_GRAD_RTOL})")
+    if not (abs(l_g - l_c) <= FT_LOSS_TOL * abs(l_c)
+            and worst[0] <= FT_GRAD_RTOL):
+        failures.append("char-CTC step, card vs CPU")
+
+
+def _ctc_step_ms(pairs, sr):
+    """The float32 char-CTC train step on the card at the transcriber's
+    training batch (``pairs``), timed over EV_CTC_TIMED steps after 2:
+    (ms a step, the batch's mel shape)."""
+    import torch
+    from etts_torch.evalsuite.ctc_asr import (CTCAsrModel, ctc_loss,
+                                              prepare_batch)
+    batch = prepare_batch(pairs, sr, 40, "cuda")
+    model = CTCAsrModel().reset_parameters(
+        torch.Generator().manual_seed(0)).cuda()
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3, betas=(0.9, 0.999),
+                           eps=1e-8)
+
+    def step():
+        loss = ctc_loss(model, *batch)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EV_CTC_TIMED):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / EV_CTC_TIMED * 1e3, tuple(
+        batch[0].shape)
+
+
+def _etts_eval_row() -> dict:
+    """etts' recorded free-running evaluation of its step-EV_STEP
+    checkpoint (``artifacts/soak/eval_curve.csv``, a TPU run)."""
+    import csv
+    with open(EV_ETTS_CURVE) as f:
+        return next(r for r in csv.DictReader(f) if int(r["step"]) == EV_STEP)
+
+
+def _eval_runs(cl, root, corpus, test6, test_rows, train_rows,
+               failures) -> dict:
+    """Phase 15's steps 3, 5, 6 and 7 (``eval_phase``), which need no
+    transcriber; ``test6`` the EV_SENTENCES held-out rows' metafile.
+    Returns their {path: read_launches()}."""
+    import csv
+    import numpy as np
+    from etts_torch import (eval_disentanglement, eval_expressive_control,
+                            export_gst_embeddings, make_combo_file,
+                            synthesize_speaker)
+    paths = {}
+    # 3. the held-out sentences through B2 and B1, B3, Griffin-Lim
+    test1 = root / "test_sentence_int8.txt"
+    test1.write_text(test_rows[0] + "\n")
+    combos = root / "combos.txt"
+    make_combo_file.main(["--metafile", str(test6), "--out", str(combos),
+                          "--n", str(EV_SENTENCES)])
+    common = ["--tts_config", str(corpus), "--tts_weights", str(TTS_W),
+              "--tts_step", str(EV_STEP), "--ref_audio_dir",
+              str(corpus / "wavs"), "--spk_embed_dir",
+              str(corpus / "spk_embeds"), "--max_length", str(EV_MAX_LENGTH),
+              "--device", "cuda"]
+    voc = ["--voc_config", str(CONFIG), "--voc_weights", str(VOC_W)]
+    n_rand = len(set(combos.read_text().split()))
+    # (path, output dir, each run's arguments, the launches, the wavs):
+    # syn_norm each held-out sentence once, rand the combo file's rows
+    runs = (("eval_speaker", "b1",
+             [[*voc, "--test_sentences", str(test6), "--regimes",
+               "syn_norm"],
+              [*voc, "--test_sentences", str(test6), "--combo_file",
+               str(combos), "--regimes", "rand"]],
+             {"fused_decode": 2 * EV_SENTENCES,
+              "wavernn_sample_loop": 2 * EV_SENTENCES},
+             EV_SENTENCES + n_rand),
+            ("eval_speaker_int8", "b3",
+             [[*voc, "--test_sentences", str(test1), "--int8"]],
+             {"fused_decode": 1, "wavernn_sample_loop_int8": 1}, 1),
+            ("eval_speaker_gl", "gl", [["--test_sentences", str(test6)]],
+             {"fused_decode": EV_SENTENCES}, EV_SENTENCES))
+    for path, name, arg_sets, want, n_wavs in runs:
+        zero_launches()
+        secs = sum(run_main(synthesize_speaker.main,
+                            common + args + ["--out_dir", str(root / name)])[0]
+                   for args in arg_sets)
+        paths[path] = ran = read_launches()
+        wavs = sorted((root / name).rglob("*.wav"))
+        say(cl, f"synthesize_speaker ({path}): {len(wavs)} wavs in "
+                f"{secs:.1f} s; launches {ran}")
+        if ran != {k: 0 for k in ran} | want or len(wavs) != n_wavs:
+            failures.append(f"synthesize_speaker {path}: launches {ran}, "
+                            f"{len(wavs)} wavs")
+
+    # 5. the GST embeddings
+    secs, _, _ = run_main(export_gst_embeddings.main, [
+        "--config", str(corpus), "--weights", str(TTS_W), "--out_dir",
+        str(root / "gst"), "--device", "cuda"])
+    embs = {p.stem: np.load(p) for p in (root / "gst").glob("*.npy")}
+    ok = (sorted(embs) == sorted(r.split("|")[0] for r in train_rows)
+          and all(np.isfinite(e).all() for e in embs.values()))
+    say(cl, f"export_gst_embeddings: {len(embs)} embeddings of shape "
+            f"{next(iter(embs.values())).shape} in {secs:.2f} s; one finite "
+            f"file per training utterance: {ok}")
+    if not ok:
+        failures.append("export_gst_embeddings")
+
+    # 6. disentanglement with fresh critics
+    secs, out, _ = run_main(eval_disentanglement.main, [
+        "--config", str(corpus), "--weights", str(TTS_W), "--steps",
+        str(EV_STEP), "--probe_first_token", "--club", "--seeds", "1",
+        "--critic_steps", str(EV_CRITIC_STEPS), "--max_batches",
+        str(EV_BATCHES), "--out", str(root / "mi.csv"), "--device", "cuda"])
+    with open(root / "mi.csv") as f:
+        mi = list(csv.DictReader(f))
+    say(cl, f"eval_disentanglement ({EV_BATCHES} batches of 8, "
+            f"{EV_CRITIC_STEPS} critic steps, 1 seed) in {secs:.1f} s: "
+            + " | ".join(ln.strip() for ln in out.splitlines()
+                         if "probe" in ln or "bound" in ln))
+    if len(mi) != 3 or not all(np.isfinite(float(r["mi_mean"]))
+                               for r in mi):
+        failures.append(f"eval_disentanglement: {mi}")
+
+    # 7. expressive control
+    zero_launches()
+    secs, out, _ = run_main(eval_expressive_control.main, [
+        "--config", str(corpus), "--weights", str(TTS_W), "--step",
+        str(EV_STEP), "--out_dir", str(root / "expressive"), "--n_utts",
+        str(EV_EXPR_UTTS), "--device", "cuda"])
+    paths["eval_expressive"] = ran = read_launches()
+    verdicts = re.findall(r"^(\w+_TRACKING): (PASS|FAIL)$", out, re.M)
+    say(cl, f"eval_expressive_control ({EV_EXPR_UTTS} sentences) in "
+            f"{secs:.1f} s, launches {ran}: " + " | ".join(
+                ln.strip() for ln in out.splitlines()
+                if ln.startswith(("carrier", "GT", "mean output",
+                                  "speaker-swap"))) + f"; verdicts "
+            f"{dict(verdicts)}")
+    n_runs = EV_EXPR_UTTS * 6
+    if len(verdicts) != 3 or ran != {k: 0 for k in ran} | {
+            "fused_decode": n_runs}:
+        failures.append(f"eval_expressive_control: {verdicts}, {ran}")
+    return paths
+
+
+def eval_phase(cl, failures):
+    """Phase 15: the evaluation suite, scored on the card against the
+    14k export's own held-out corpus; each entry point's ``main`` runs in
+    this process but ``train_ctc_asr``'s:
+      1. ``make_synth_corpus`` (EV_UTTS utterances, seed 0: the corpus the
+         export was trained on) and ``create_dataset`` (grapheme) on the
+         card: the store's split (20 held out);
+      2. ``train_ctc_asr`` on the card on EV_CTC_UTTS utterances of the
+         training split for EV_CTC_STEPS steps (the final loss, the
+         train-set WER), in a process of its own while its step is held
+         card against CPU in float64 (``_ctc_step_check``) and steps 3, 5,
+         6 and 7 run (``_eval_runs``); then its float32 step timed
+         (``_ctc_step_ms``) and step 4;
+      3. ``synthesize_speaker`` with the 14k export (its step sets r and
+         the prenet dropout from the corpus's schedules) and the 26k
+         vocoder on EV_SENTENCES held-out sentences in regimes syn_norm and
+         rand (a ``make_combo_file`` file), B2's and B1's launches read
+         around it (one each an utterance); one utterance with ``--int8``
+         (B3); syn_norm through Griffin-Lim (B2 only);
+      4. ``objective_measure`` of those directories against the corpus's
+         wavs, WER through step 2's checkpoint: every pair scored, no
+         metric NaN but PESQ without the ``pesq`` package and F0-RMSE
+         where a pair has no frame voiced in both; the metrics by
+         regime and vocoder beside the length ratio syn / GT and etts'
+         recorded row (a TPU run, not a bar); the DTW library's path
+         against the numpy version's on one pair, on the host;
+      5. ``export_gst_embeddings`` of the export: one finite file per
+         training utterance;
+      6. ``eval_disentanglement --probe_first_token --club``: the MI lower
+         and upper bounds, the probe's accuracy against chance;
+      7. ``eval_expressive_control`` on EV_EXPR_UTTS sentences: its three
+         verdicts (a FAIL is a finding; a void sanity check raises), the
+         launches read around it.
+    Failed checks go to ``failures``; returns {path: read_launches()} for
+    "eval_speaker", "eval_speaker_int8", "eval_speaker_gl" and
+    "eval_expressive"."""
+    import csv
+    import importlib.util
+    import os
+    import shutil
+    import numpy as np
+    from etts_torch import (create_dataset, make_synth_corpus,
+                            objective_measure, train_ctc_asr)
+    from etts_torch.data.audio_io import load_wav
+    from etts_torch.evalsuite.dtw import dtw_path
+    from etts_torch.evalsuite.metrics import f0_rmse, mel_cepstrum
+    from etts_torch.utils.config import load_config, schedule_values
+    root = ROOT / "build" / "phase15"
+    shutil.rmtree(root, ignore_errors=True)
+    corpus = root / "corpus"
+    paths = {}
+
+    # 1. the corpus and its store
+    secs, _, _ = run_main(make_synth_corpus.main, [
+        "--out", str(corpus), "--n_utts", str(EV_UTTS), "--seed", "0"])
+    secs2, _, _ = run_main(create_dataset.main, [
+        "--config", str(corpus), "--phonemizer_backend", "grapheme",
+        "--njobs", "8", "--device", "cuda"])
+    train_rows = (corpus / "train_metafile.txt").read_text().splitlines()
+    test_rows = (corpus / "test_metafile.txt").read_text().splitlines()
+    sched = schedule_values(load_config(corpus, "autoregressive"), EV_STEP)
+    say(cl, f"make_synth_corpus ({EV_UTTS} utterances, seed 0): {secs:.2f} "
+            f"s; create_dataset on the card: {secs2:.2f} s; split "
+            f"{len(train_rows)} train / {len(test_rows)} held out; the "
+            f"corpus's schedules at step {EV_STEP}: r = "
+            f"{sched['reduction_factor']}, prenet dropout "
+            f"{sched['decoder_prenet_dropout']}")
+    if len(test_rows) != 20:
+        failures.append(f"phase 15 store: {len(test_rows)} held out")
+    test6 = root / "test_sentences.txt"
+    test6.write_text("\n".join(test_rows[:EV_SENTENCES]) + "\n")
+
+    # 2. the char-CTC transcriber's training on the training split in a
+    # process of its own (host-bound) while its step is held card against
+    # CPU and steps 3, 5, 6 and 7 run; read, and its step timed, before 4
+    ctc = root / "ctc.npz"
+    t_ctc = time.perf_counter()
+    ctc_proc = subprocess.Popen(
+        [sys.executable, "-m", "etts_torch.train_ctc_asr", "--metadata",
+         str(corpus / "train_metafile.txt"), "--wav_dir", str(corpus / "wavs"),
+         "--out", str(ctc), "--steps", str(EV_CTC_STEPS), "--max_utts",
+         str(EV_CTC_UTTS), "--device", "cuda"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        pairs, sr = train_ctc_asr.read_pairs(corpus / "train_metafile.txt",
+                                             corpus / "wavs", EV_CTC_UTTS)
+        _ctc_step_check(cl, pairs, sr, failures)
+        paths |= _eval_runs(cl, root, corpus, test6, test_rows, train_rows,
+                            failures)
+        out, err = ctc_proc.communicate(timeout=900)
+    finally:
+        if ctc_proc.poll() is None:
+            ctc_proc.kill()
+            ctc_proc.communicate()
+    secs = time.perf_counter() - t_ctc
+    step_ms, shape = _ctc_step_ms(pairs, sr)
+    if ctc_proc.returncode != 0:
+        raise RuntimeError(f"train_ctc_asr failed: {err[-2000:]}")
+    loss = float(re.search(r"final ctc loss (\S+);", out).group(1))
+    say(cl, f"train_ctc_asr on the card, in a process of its own: "
+            f"{EV_CTC_UTTS} utterances, {EV_CTC_STEPS} steps in {secs:.1f} s "
+            f"(the process's start, the mels and the checkpoint included; "
+            f"the card and the host shared with steps 3 and 5-7); the "
+            f"float32 step at mels {shape}: {step_ms:.2f} ms/step (host "
+            f"clock, synchronised, {EV_CTC_TIMED} steps, its process ended); "
+            f"final loss "
+            f"{loss:.4f}; " + " | ".join(ln for ln in out.splitlines()
+                                        if "WER" in ln))
+    if not np.isfinite(loss):
+        failures.append("train_ctc_asr: loss not finite")
+
+    # 4. the scores
+    if importlib.util.find_spec("speech_recognition") is not None:
+        raise RuntimeError("the SpeechRecognition package is installed: its "
+                           "recognizer, the first WER backend, needs the "
+                           "network")
+    pesq_absent = importlib.util.find_spec("pesq") is None
+    syn_dirs = [root / "b1" / "syn_norm", root / "b1" / "rand",
+                root / "gl" / "syn_norm"]
+    scores = root / "scores"
+    secs, out, _ = run_main(objective_measure.main, [
+        "--ref_dir", str(corpus / "wavs"), "--syn_dirs",
+        *map(str, syn_dirs), "--texts", str(test6), "--ctc_asr", str(ctc),
+        "--workers", "8", "--out", str(scores / "all_score.log"),
+        "--device", "cuda"])
+    etts_row = _etts_eval_row()
+    with open(scores / "all_score.log") as f:
+        table = {r["model"]: r for r in csv.DictReader(f, delimiter="\t")}
+    n_pairs = sum(len(list(d.glob("*.wav"))) for d in syn_dirs)
+    heard = re.search(r"WER backend: (\S+)", out)[1]
+    say(cl, f"objective_measure: {n_pairs} pairs in {secs:.1f} s (8 metric "
+            f"workers, the WER through the {heard} backend on the card; "
+            f"transformers importable: "
+            f"{importlib.util.find_spec('transformers') is not None})")
+    for d, model in zip(syn_dirs, objective_measure.model_names(
+            list(map(str, syn_dirs)))):
+        with open(scores / f"score_{model}.csv") as f:
+            rows = list(csv.DictReader(f))
+        ratios = [len(load_wav(str(p))[0]) / len(load_wav(str(
+            corpus / "wavs" / f"{p.stem.split('__')[0]}.wav"))[0])
+                  for p in sorted(d.glob("*.wav"))]
+        # no metric NaN but PESQ without the pesq package, and F0-RMSE
+        # where the pair has no frame voiced in both (f0_rmse's own NaN)
+        nan = [(r["file"], k) for r in rows
+               for k in objective_measure.METRIC_KEYS
+               if not np.isfinite(float(r[k] or "nan"))
+               and not (k == "PESQ" and pesq_absent)]
+        unvoiced = [f for f, k in nan if k == "RMSE_F0" and f0_rmse(
+            *(load_wav(str(p), 16000)[0] for p in (
+                corpus / "wavs" / f"{f.split('__')[0]}.wav", d / f)))[1] == 0]
+        nan = [(f, k) for f, k in nan if f not in unvoiced or k != "RMSE_F0"]
+        vocoder = "Griffin-Lim" if d.parent.name == "gl" else "B1 (26k export)"
+        say(cl, f"{d.name} through {vocoder}: "
+                + ", ".join(f"{k} {float(table[model][k]):.4f}"
+                            for k in objective_measure.METRIC_KEYS)
+                + f"; length syn / GT mean {np.mean(ratios):.3f} (min "
+                f"{min(ratios):.3f}, max {max(ratios):.3f}); {len(rows)} "
+                f"pairs scored; F0-RMSE NaN for no frame voiced in both: "
+                f"{len(unvoiced)}; other non-finite: {nan}")
+        if len(rows) != len(ratios) or not rows or nan:
+            failures.append(f"objective_measure {model}: {len(rows)} of "
+                            f"{len(ratios)} pairs, non-finite {nan}")
+    say(cl, "etts' recorded row for its step-14000 checkpoint on this "
+            "corpus (artifacts/soak/eval_curve.csv, a TPU run, its own "
+            "transcriber and 20 sentences; printed beside, not a bar): "
+            + ", ".join(f"{k} {v}" for k, v in etts_row.items()))
+    ref_path = corpus / "wavs" / f"{test_rows[0].split('|')[0]}.wav"
+    syn_path = sorted(syn_dirs[0].glob("*.wav"))[0]
+    c_ref, c_syn = (mel_cepstrum(load_wav(str(p), 16000)[0])
+                    for p in (ref_path, syn_path))
+    t0 = time.perf_counter()
+    lib = dtw_path(c_ref, c_syn)
+    t_lib = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = dtw_path(c_ref, c_syn, backend="numpy")
+    t_np = time.perf_counter() - t0
+    say(cl, f"DTW of {syn_path.name}'s mel-cepstra ({len(c_ref)} x "
+            f"{len(c_syn)}) on the host CPU: the library's distance and "
+            f"path equal the numpy version's: {lib == plain} "
+            f"({t_lib * 1e3:.2f} ms against {t_np * 1e3:.1f} ms)")
+    if lib != plain:
+        failures.append("DTW library against the numpy version")
+    return paths
+
+
+SIDE = "--side"
+
+
+def side_main(out: Path) -> int:
+    """``chip_smoke.py --side OUT``: phases 13 and 15, which ``main`` runs
+    in this process of their own beside phase 12 (all three host-bound,
+    the card idle most of the time); their lines to this process's output,
+    {"paths": ..., "failures": [...]} to OUT."""
+    cl, failures = card(), []
+    say(cl, "phases 13 and 15, in a process of their own beside phase 12: "
+            "the card and the host shared, their times and phase 12's not "
+            "taken alone")
+    t0 = time.perf_counter()
+    paths = taco_train_phase(cl, ref_wav(), failures)
+    say(cl, f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. the evaluation suite on the 14k export's own corpus ----
+    t0 = time.perf_counter()
+    paths |= eval_phase(cl, failures)
+    say(cl, f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    out.write_text(json.dumps({"paths": paths, "failures": failures}))
+    return 0
+
+
+def _start_side():
+    """Start ``side_main`` in a session of its own (so that it and every
+    process it starts can be stopped together), its output to files under
+    build/side/."""
+    import shutil
+    root = ROOT / "build" / "side"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    logs = [open(root / name, "w") for name in ("stdout", "stderr")]
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), SIDE,
+         str(root / "result.json")], cwd=ROOT, stdout=logs[0],
+        stderr=logs[1], start_new_session=True)
+    return proc, root, logs
+
+
+def _finish_side(side, failures) -> dict:
+    """Wait for ``side_main`` (at most SIDE_TIMEOUT s), print its output,
+    add its failures to ``failures`` (a failed process is one); returns its
+    {path: launches}."""
+    proc, root, logs = side
+    try:
+        proc.wait(timeout=SIDE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        _stop_side(side)
+    for log in logs:
+        log.close()
+    sys.stdout.write((root / "stdout").read_text())
+    sys.stdout.flush()
+    sys.stderr.write((root / "stderr").read_text())
+    sys.stderr.flush()
+    result = root / "result.json"
+    if proc.returncode != 0 or not result.exists():
+        failures.append(f"phases 13 and 15 (their process): return code "
+                        f"{proc.returncode}")
+        return {}
+    res = json.loads(result.read_text())
+    failures.extend(res["failures"])
+    return res["paths"]
+
+
+def _stop_side(side) -> None:
+    """Kill ``side_main``'s session if it is still running."""
+    import os
+    import signal
+    proc = side[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3383,6 +3865,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from etts_torch.utils.precision import pin_float32
     pin_float32()
+    if sys.argv[1:2] == [SIDE]:
+        return side_main(Path(sys.argv[2]))
 
     # ---- 1. card, build ----
     cl = card()
@@ -3984,14 +4468,20 @@ def main() -> int:
     say(cl, f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 12. the vocoder's training flow, the trained export through B1 --
-    t0 = time.perf_counter()
-    paths |= vocoder_train_phase(cl, voc, failures)
-    say(cl, f"phase 12 took {time.perf_counter() - t0:.1f} s")
-
-    # ---- 13. the TTS stores, GST-Tacotron's training, its export served --
-    t0 = time.perf_counter()
-    paths |= taco_train_phase(cl, wav_ref, failures)
-    say(cl, f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    # ---- 13 and 15 beside it, in a process of their own (side_main) ----
+    side = _start_side()
+    try:
+        t0 = time.perf_counter()
+        paths |= vocoder_train_phase(cl, voc, failures)
+        say(cl, f"phase 12 took {time.perf_counter() - t0:.1f} s (phases 13 "
+                f"and 15 beside it)")
+        t1 = time.perf_counter()
+        paths |= _finish_side(side, failures)
+        say(cl, f"phases 12, 13 and 15 took {time.perf_counter() - t0:.1f} "
+                f"s, phases 13 and 15 ending {time.perf_counter() - t1:.1f} "
+                f"s after phase 12")
+    finally:
+        _stop_side(side)
 
     # ---- 14. precision bfloat16: serving, streaming, training ----
     t0 = time.perf_counter()

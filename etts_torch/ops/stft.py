@@ -13,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["hann_window", "stft", "istft", "mel_filterbank",
+__all__ = ["hann_window", "n_frames", "stft", "istft", "mel_filterbank",
            "MelSpectrogram"]
 
 
@@ -31,6 +31,13 @@ def _padded_window(win_length: int, n_fft: int) -> np.ndarray:
     out = np.zeros(n_fft, np.float32)
     out[lpad:lpad + win_length] = hann_window(win_length)
     return out
+
+
+def n_frames(n_samples: int, n_fft: int, hop_length: int) -> int:
+    """The frame count ``stft`` gives an ``n_samples`` signal
+    (`etts/ops/stft.py:62-72`): the CTC transcriber trims its decode to the
+    unpadded wav's frames with it."""
+    return max(1, 1 + (n_samples + 2 * (n_fft // 2) - n_fft) // hop_length)
 
 
 def stft(y: torch.Tensor, n_fft: int, hop_length: int,

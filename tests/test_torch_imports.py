@@ -46,4 +46,12 @@ def test_port_imports_no_jax_flax_or_etts():
             "etts_torch.train_wavernn", "etts_torch.gen_wavernn",
             "etts_torch.make_gta", "etts_torch.create_dataset",
             "etts_torch.data.taco_builders",
-            "etts_torch.train_tacotron"} <= set(modules)
+            "etts_torch.train_tacotron", "etts_torch.evalsuite",
+            "etts_torch.evalsuite.dtw", "etts_torch.evalsuite.metrics",
+            "etts_torch.evalsuite.wer", "etts_torch.evalsuite.ctc_asr",
+            "etts_torch.make_synth_corpus", "etts_torch.make_combo_file",
+            "etts_torch.train_ctc_asr", "etts_torch.objective_measure",
+            "etts_torch.synthesize_speaker",
+            "etts_torch.export_gst_embeddings",
+            "etts_torch.eval_disentanglement",
+            "etts_torch.eval_expressive_control"} <= set(modules)
