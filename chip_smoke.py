@@ -157,9 +157,26 @@ Phases (any failure exits non-zero and prints no result line):
      beside etts' recorded row, ``export_gst_embeddings``,
      ``eval_disentanglement`` (fresh MINE and CLUB critics, the
      first-token probe) and ``eval_expressive_control`` (its verdicts).
+  16. data parallelism (dp_phase): two gloo ranks sharing the card
+     (``chip_smoke.py --dp-rank``, processes of their own) vocode two
+     seeded mels through ``generate_batch_sharded`` on the 26k export (B1
+     once a rank, launches read around it in each; each rank's rows
+     bit-equal to one launch here of those rows seeded as the rank seeds
+     them) and run ``train_autoregressive --multihost`` for DP_STEPS steps
+     on phase 9's corpus and config; the plain driver and the driver as
+     the one rank of an NCCL group run here; each first step's loss
+     within DP_LOSS_TOL of the plain driver's, the float64 step the
+     control; one checkpoint a run; the step times of 1 and 2 ranks (two
+     ranks on one card: no speed-up is claimed).
 
 Phases 13 and 15 run in a process of their own (``--side``) beside phase
 12; their lines are printed when it ends.
+
+``python3 chip_smoke.py --nccl-cards``, on a host of two cards or more and
+not part of the one-card run, holds data parallelism across the cards:
+the worker on one card and on one NCCL rank a card, its checkpoint case,
+and ``train_autoregressive`` under torchrun against the plain driver
+(``nccl_cards_main``).
 
 The port computes in float32 without TF32 (``utils/precision.py``), as
 every entry point sets it, except where a config asks for ``precision:
@@ -429,6 +446,28 @@ EV_ETTS_CURVE = ROOT / "artifacts/soak/eval_curve.csv"
 # phase host-bound, the card idle most of the time); the seconds that
 # process may run on once phase 12 has ended
 SIDE_TIMEOUT = 300
+# phase 16: data parallelism, two gloo ranks sharing the one card (NCCL
+# refuses two ranks on one GPU) and one NCCL rank. Vocoding: DP_MEL_FRAMES
+# seeded mels of 1-2 s through generate_batch_sharded on the 26k export,
+# seed DP_SEED. Training: train_autoregressive on phase 9's corpus and
+# config (full width, its cuts) for DP_STEPS steps on 2 gloo ranks, on 1
+# NCCL rank and plain; the first step's loss (the global batch's, before
+# any update: the same dropout, HeadDrop and BatchNorm statistics) within
+# DP_LOSS_TOL relative of the plain driver's. The bar is set from the
+# float64 control: the plain float32 step's loss, a float32 computation
+# ordered otherwise than the ranks', reads about 1e-7 from the card's
+# float64 step on the same batch and draws; a rank's local BatchNorm
+# statistics or its own dropout draws move the loss by 1e-3 or more at the
+# CPU test's width. Each spawned rank gets DP_TIMEOUT s
+DP_MEL_FRAMES = (96, 152)
+DP_SEED = 16
+DP_STEPS = 3
+DP_LOSS_TOL = 1e-5
+DP_TIMEOUT = 300
+DP_RANK = "--dp-rank"
+# ``chip_smoke.py --nccl-cards``: data parallelism over every card of the
+# host, one NCCL rank a card (not part of the one-card run)
+NCCL_CARDS = "--nccl-cards"
 
 
 def card() -> str:
@@ -1339,33 +1378,13 @@ def worst_grad(names, got, want, atol):
                 n) for n, a, b in zip(names, got, want))
 
 
-def train_phase(cl, ref_mel, spk, failures):
-    """Phase 9: training configs/default's AR model (d 256, 4 + 4 blocks,
-    FFN 1024, GST, postnet 5 x 256, r = 10 from the schedule,
-    tts_batch_size 8) with ``use_mine`` and the three default pairs (KL,
-    the first-order critic) on a seeded corpus of TRAIN_CORPUS utterances
-    (``write_corpus``). Cut for the smoke test: mine_batch_size_schedule
-    [[0, 8]] (from 256: the corpus holds 64), weights_save_frequency and
-    prediction_frequency 10 (from 10 000), prediction_start_step 0 (from
-    20 000). Failed checks go to ``failures``; returns the launches of the
-    trained export's decode ({"train_serve": read_launches()})."""
+def phase9_config():
+    """Phase 9's corpus (``write_corpus``, TRAIN_CORPUS utterances) and its
+    config dir, configs/default's with phase 9's cuts, written anew under
+    build/ (the logs emptied); returns (corpus, config dir). Phases 11-14
+    and 16 read both."""
     import shutil
-    import statistics
-    import numpy as np
-    import torch
     import yaml
-    from etts_torch.api import TTSSynthesizer
-    from etts_torch.convert import export_flat
-    from etts_torch.data.dataset import DataPrepper, Dataset, load_files
-    from etts_torch.models.init import init_flax
-    from etts_torch.ops.kernels import decoder_step as dstep
-    from etts_torch.text import default_tokenizer
-    from etts_torch.train.state import TrainState
-    from etts_torch.train.steps import make_autoregressive_train_step
-    from etts_torch.train_autoregressive import SEED, to_device
-    from etts_torch.utils.config import ConfigManager, build_tts
-    from etts_torch.utils.logging import read_scalars
-    dev = torch.device("cuda")
     build = ROOT / "build"
     corpus, cdir = build / "phase9_corpus", build / "phase9_config"
     logs = build / "phase9_logs"
@@ -1381,6 +1400,35 @@ def train_phase(cl, ref_mel, spk, failures):
                weights_save_frequency=10, prediction_frequency=10,
                prediction_start_step=0)
     (cdir / "autoregressive_config.yaml").write_text(yaml.safe_dump(cfg))
+    return corpus, cdir
+
+
+def train_phase(cl, ref_mel, spk, failures):
+    """Phase 9: training configs/default's AR model (d 256, 4 + 4 blocks,
+    FFN 1024, GST, postnet 5 x 256, r = 10 from the schedule,
+    tts_batch_size 8) with ``use_mine`` and the three default pairs (KL,
+    the first-order critic) on a seeded corpus of TRAIN_CORPUS utterances
+    (``write_corpus``). Cut for the smoke test: mine_batch_size_schedule
+    [[0, 8]] (from 256: the corpus holds 64), weights_save_frequency and
+    prediction_frequency 10 (from 10 000), prediction_start_step 0 (from
+    20 000). Failed checks go to ``failures``; returns the launches of the
+    trained export's decode ({"train_serve": read_launches()})."""
+    import statistics
+    import numpy as np
+    import torch
+    from etts_torch.api import TTSSynthesizer
+    from etts_torch.convert import export_flat
+    from etts_torch.data.dataset import DataPrepper, Dataset, load_files
+    from etts_torch.models.init import init_flax
+    from etts_torch.ops.kernels import decoder_step as dstep
+    from etts_torch.text import default_tokenizer
+    from etts_torch.train.state import TrainState
+    from etts_torch.train.steps import make_autoregressive_train_step
+    from etts_torch.train_autoregressive import SEED, to_device
+    from etts_torch.utils.config import ConfigManager, build_tts
+    from etts_torch.utils.logging import read_scalars
+    dev = torch.device("cuda")
+    corpus, cdir = phase9_config()
     cm = ConfigManager(cdir, "autoregressive", "phase9")
     c = cm.config
     tok = default_tokenizer(True)
@@ -3852,6 +3900,432 @@ def _stop_side(side) -> None:
         proc.wait()
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_mels(dev):
+    """Phase 16's mels: DP_MEL_FRAMES frames (1.2 and 1.9 s at the 12.5 ms
+    hop) of smooth seeded values in the vocoder's [0, 1]."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(DP_SEED)
+    out = []
+    for n in DP_MEL_FRAMES:
+        t = np.arange(n)[:, None] / 40.0
+        f = np.arange(80)[None] / 80.0
+        mel = 0.5 + 0.3 * np.sin(2 * np.pi * (t + f) + rng.uniform(0, 6)) \
+            + 0.05 * rng.standard_normal((n, 80))
+        out.append(torch.from_numpy(np.clip(mel, 0, 1).astype(np.float32))
+                   .to(dev))
+    return out
+
+
+def _dp_driver_argv(session, *extra):
+    return ["--config", str(ROOT / "build" / "phase9_config"),
+            "--session_name", session, "--max_steps", str(DP_STEPS), *extra]
+
+
+def dp_rank_main(rank: int, port: int, out: Path) -> int:
+    """``chip_smoke.py --dp-rank R PORT OUT``: rank R of 2 in a gloo group
+    on the one card. ``generate_batch_sharded`` over ``dp_mels`` (this
+    rank's rows kept as the sample loop returned them, its launches read
+    around the call), then ``train_autoregressive --multihost`` for
+    DP_STEPS steps (its output and launches kept); all of it to
+    OUT/rank{R}.pt."""
+    import torch
+    from etts_torch.models import wavernn as wv
+    from etts_torch.parallel import init_multihost, local_device
+    from etts_torch.api import VocoderSynthesizer
+    init_multihost(f"127.0.0.1:{port}", 2, rank, "gloo")
+    dev = local_device("cuda")
+    voc = VocoderSynthesizer(CONFIG, VOC_W, dev)
+    mels = dp_mels(dev)
+    rows, loop = [], wv.wavernn_sample_loop
+
+    def kept(*args, **kwargs):         # the loop itself, its output kept
+        res = loop(*args, **kwargs)
+        rows.append(res[0].clone())
+        return res
+    wv.wavernn_sample_loop = kept
+    try:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        wavs = wv.generate_batch_sharded(
+            voc.model, mels, target=voc.config.get("voc_target", 11000),
+            overlap=voc.config.get("voc_overlap", 550),
+            mu_law=voc.config.get("mu_law", True), seed=DP_SEED,
+            weights=voc.weights)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ran = read_launches()
+    finally:
+        wv.wavernn_sample_loop = loop
+    from etts_torch.train_autoregressive import main as train_main
+    zero_launches()
+    t_train, text, _ = run_main(train_main, _dp_driver_argv(
+        "phase16_gloo2", "--multihost", "--coordinator_address",
+        f"127.0.0.1:{port}", "--num_processes", "2", "--process_id",
+        str(rank), "--dist_backend", "gloo"))
+    torch.save({"rows": [r.cpu() for r in rows],
+                "wavs": [w.cpu() for w in wavs], "launches": ran,
+                "seconds": secs, "train_launches": read_launches(),
+                "train_seconds": t_train, "train_out": text,
+                "device": str(dev)}, out / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _start_ranks(n: int, port: int, out: Path):
+    """Start ``dp_rank_main`` as ranks 0..n-1 (each with its output to
+    ``out/{rank}.log`` and its share of the host's cores for its CPU
+    threads); returns (processes, log files)."""
+    import os
+    files = [open(out / f"{r}.log", "w") for r in range(n)]
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(
+        1, len(os.sched_getaffinity(0)) // n)))
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), DP_RANK, str(r),
+         str(port), str(out)], cwd=ROOT, stdout=f, env=env,
+        stderr=subprocess.STDOUT) for r, f in enumerate(files)]
+    return procs, files
+
+
+def _wait_ranks(procs, files, deadline: float) -> list:
+    """Wait for the ranks until ``deadline`` (``time.perf_counter``);
+    returns their return codes (None for a rank stopped at it, every rank
+    then stopped)."""
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    return [p.returncode for p in procs]
+
+
+def dp_phase(cl, voc, failures):
+    """Phase 16: data parallelism on the card. Two gloo ranks sharing the
+    card (``dp_rank_main``) vocode ``dp_mels`` through
+    ``generate_batch_sharded`` (B1 once a rank; each rank's rows bit-equal
+    to one launch in this process of those rows seeded ``fold_in(DP_SEED,
+    rank)``, the waveforms bit-equal on both ranks and to those rows
+    finalized) and run ``train_autoregressive --multihost`` for DP_STEPS
+    steps. The comparison launches and the float64 control run here while
+    the ranks start. Then the plain driver, and the driver as the one rank
+    of an NCCL group, run here in turn; each first step's loss within
+    DP_LOSS_TOL of the plain driver's, the float64 control beside; one
+    checkpoint written a run. Returns {path: launches}: the two ranks'
+    vocoding, rank 0's training."""
+    import shutil
+    import statistics
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from etts_torch.data.dataset import DataPrepper, Dataset, load_files
+    from etts_torch.models.init import init_flax
+    from etts_torch.models.wavernn import (_conditioning_streams, _finalize,
+                                           _upsample_fold)
+    from etts_torch.ops.kernels import wavernn_cell as wcell
+    from etts_torch.parallel import init_multihost
+    from etts_torch.text import default_tokenizer
+    from etts_torch.train.steps import make_autoregressive_train_step
+    from etts_torch.train_autoregressive import SEED, main as train_main
+    from etts_torch.train_autoregressive import to_device
+    from etts_torch.utils.config import (ConfigManager, build_tts,
+                                         piecewise_linear_schedule,
+                                         step_schedule)
+    from etts_torch.utils.logging import read_scalars
+    from etts_torch.utils.seeds import fold_in
+    root = ROOT / "build" / "phase16"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cdir = ROOT / "build" / "phase9_config"
+    for s in ("phase16_gloo2", "phase16_nccl1", "phase16_plain"):
+        shutil.rmtree(ConfigManager(cdir, "autoregressive", s).base_dir,
+                      ignore_errors=True)
+    say(cl, "phase 16: data parallelism; two ranks share this one card "
+            "(gloo: NCCL refuses two ranks on one GPU), so no speed-up is "
+            "claimed or measurable here")
+    t0 = time.perf_counter()
+    procs, files = _start_ranks(2, _free_port(), root)
+
+    # while the ranks start: one launch of each rank's rows, seeded as the
+    # rank seeds it, and the first step in float64 (the bar's control)
+    dev = torch.device("cuda")
+    mu_law = voc.config.get("mu_law", True) and voc.model.mode == "RAW"
+    target = voc.config.get("voc_target", 11000)
+    overlap = voc.config.get("voc_overlap", 550)
+    with torch.no_grad():
+        folds = [_upsample_fold(voc.model, m[None], True, target, overlap)
+                 for m in dp_mels(dev)]
+        counts = [u.shape[0] for u, _ in folds]
+        cond = _conditioning_streams(torch.cat([u for u, _ in folds]),
+                                     torch.cat([a for _, a in folds]))
+        n_rows = cond.shape[1]
+        per = -(-n_rows // 2)
+        cond = F.pad(cond, (0, 0, 0, 2 * per - n_rows))
+        single, single_ms = [], []
+        for r in (0, 1):
+            cond_r = cond[:, r * per:(r + 1) * per].contiguous()
+            ms, (out, _) = cuda_ms(lambda: wcell.wavernn_sample_loop(
+                cond_r, voc.weights, mode=voc.model.mode,
+                n_classes=voc.model.n_classes, seed=fold_in(DP_SEED, r)),
+                1, warm=False)
+            single.append(out)
+            single_ms.append(ms)
+        full = torch.cat(single, 1)[:, :n_rows].T.split(counts)
+        want = [_finalize(rw, True, overlap, mu_law, voc.model,
+                          (n - 1) * voc.model.hop_length).cpu()
+                for rw, n in zip(full, DP_MEL_FRAMES)]
+    c = ConfigManager(cdir, "autoregressive", "phase16_plain").config
+    tok = default_tokenizer(True)
+    corpus = Path(c["train_data_directory"])
+    samples, _ = load_files(corpus / "train_metafile.txt", corpus / "mels",
+                            corpus / "spk_embeds")
+    host = Dataset(samples, DataPrepper(c, tok), c["tts_batch_size"],
+                   mel_channels=c["mel_channels"]).next_batch()
+    model = build_tts(c, tok.vocab_size)
+    init_flax(model, torch.Generator().manual_seed(SEED))
+    model.double().to(dev)
+    state = grad_capture(model, c["learning_rate_tts_schedule"])
+    met, _ = make_autoregressive_train_step(
+        model, stop_scaling=c.get("stop_loss_scaling", 1.0),
+        use_style_loss=c.get("use_style_loss", False),
+        mi_weight_factor=c.get("mine_weight_factor", 0.1))(
+        state, tuple(x.double() if x.is_floating_point() else x
+                     for x in to_device(host, dev)), 0.0, fold_in(SEED, 0),
+        r=step_schedule(0, c["reduction_factor_schedule"]),
+        prenet_dropout=piecewise_linear_schedule(
+            0, c["decoder_prenet_dropout_schedule"]),
+        drop_n_heads=step_schedule(0, c["head_drop_schedule"]))
+    l64 = float(met["loss"])
+    del model, state, met
+    t_parent = time.perf_counter() - t0
+    rcs = _wait_ranks(procs, files, t0 + DP_TIMEOUT)
+    t_gloo = time.perf_counter() - t0
+    say(cl, f"two gloo ranks: {t_gloo:.1f} s from their start, this "
+            f"process's comparison launches and float64 step {t_parent:.1f} "
+            "s of it, beside them")
+    if rcs != [0, 0]:
+        for r in (0, 1):
+            sys.stdout.write((root / f"{r}.log").read_text()[-4000:])
+        failures.append(f"phase 16: the gloo ranks returned {rcs}")
+        return {}
+    res = [torch.load(root / f"rank{r}.pt", weights_only=False)
+           for r in (0, 1)]
+    for r in (0, 1):
+        same = torch.equal(res[r]["rows"][0], single[r].cpu())
+        say(cl, f"generate_batch_sharded rank {r} (gloo, {res[r]['device']}"
+                f"): {per} of {n_rows} fold rows x T={single[r].shape[0]}, "
+                f"launches {res[r]['launches']}, {res[r]['seconds']:.3f} s "
+                f"host time; its rows bit-equal to one launch in this "
+                f"process seeded fold_in({DP_SEED}, {r}) "
+                f"({single_ms[r]:.2f} ms): {same}")
+        if not (same and len(res[r]["rows"]) == 1
+                and res[r]["launches"]["wavernn_sample_loop"] == 1):
+            failures.append(f"generate_batch_sharded rank {r}")
+    finite = all(bool(torch.isfinite(w).all()) for w in want)
+    same = all(torch.equal(a, b) and torch.equal(a, w) for a, b, w in zip(
+        res[0]["wavs"], res[1]["wavs"], want))
+    say(cl, f"generate_batch_sharded: {len(want)} waveforms "
+            f"({', '.join(str(w.numel()) for w in want)} samples), bit-equal "
+            f"on both ranks and to the single launches' rows finalized: "
+            f"{same}; finite: {finite}")
+    if not (same and finite):
+        failures.append("generate_batch_sharded waveforms")
+
+    # the plain driver, then the one rank of an NCCL group, in this process
+    t_plain, _, _ = run_main(train_main, _dp_driver_argv("phase16_plain"))
+    port = _free_port()
+    init_multihost(f"127.0.0.1:{port}", 1, 0, "nccl")
+    try:
+        t_nccl, _, _ = run_main(train_main, _dp_driver_argv(
+            "phase16_nccl1", "--multihost", "--coordinator_address",
+            f"127.0.0.1:{port}", "--num_processes", "1", "--process_id",
+            "0", "--dist_backend", "nccl"))
+        one = torch.ones(4, device=dev)
+        dist.all_reduce(one)        # NCCL's communicator on this card
+        nccl_ok = (dist.get_backend() == "nccl"
+                   and bool((one == 1).all()))
+    finally:
+        dist.destroy_process_group()
+    say(cl, f"NCCL group of one on {torch.cuda.get_device_name(0)}: an "
+            f"all-reduce on the card {'right' if nccl_ok else 'WRONG'}")
+    if not nccl_ok:
+        failures.append("phase 16: the NCCL all-reduce")
+
+    runs = {}
+    for label, session, secs in (
+            ("plain", "phase16_plain", t_plain),
+            ("1 NCCL rank", "phase16_nccl1", t_nccl),
+            ("2 gloo ranks sharing the card", "phase16_gloo2",
+             res[0]["train_seconds"])):
+        cm = ConfigManager(cdir, "autoregressive", session)
+        sc = read_scalars(cm.log_dir)
+        ckpts = sorted(p.name for p in cm.weights_dir.iterdir())
+        runs[label] = (sc["train/loss"], statistics.median(
+            sc["time/step_ms"][i] for i in range(1, DP_STEPS)), ckpts)
+        say(cl, f"train_autoregressive, {label}: {secs:.1f} s; losses "
+                f"{dict(sorted(sc['train/loss'].items()))}; median "
+                f"{runs[label][1]:.2f} ms/step over steps 1-{DP_STEPS - 1} "
+                f"(host clock, synchronised); checkpoints {ckpts}")
+    base = runs["plain"][0][0]
+    say(cl, f"first step's loss: plain float32 {base:.8f}, float64 control "
+            f"{l64:.8f} (relative {abs(base - l64) / abs(l64):.2e}; the "
+            f"bar {DP_LOSS_TOL}, one float32 ulp of the loss "
+            f"{float(np.spacing(np.float32(base))) / abs(base):.2e})")
+    for label, (losses, _, ckpts) in runs.items():
+        d = abs(losses[0] - base) / abs(base)
+        ok = (d <= DP_LOSS_TOL and ckpts == [f"ckpt-{DP_STEPS}.pt"]
+              and all(math.isfinite(v) for v in losses.values()))
+        say(cl, f"{label}: first step's loss {losses[0]:.8f}, relative "
+                f"{d:.2e} from the plain driver's (tol {DP_LOSS_TOL}), "
+                f"{abs(losses[0] - l64) / abs(l64):.2e} from float64")
+        if not ok:
+            failures.append(f"train_autoregressive, {label}")
+    if abs(base - l64) / abs(l64) > DP_LOSS_TOL:
+        failures.append("phase 16: the float32 step is past the bar from "
+                        "float64")
+    progress = [[ln for ln in res[r]["train_out"].splitlines()
+                 if ln.startswith(("session ", "step ", "Done."))]
+                for r in (0, 1)]
+    if "Done." not in progress[0] or progress[1]:
+        failures.append(f"phase 16: rank 0 alone prints ({progress[1]})")
+    say(cl, f"step ms: 1 rank {runs['1 NCCL rank'][1]:.2f} (NCCL), 2 ranks "
+            f"{runs['2 gloo ranks sharing the card'][1]:.2f} (gloo, one "
+            f"card shared: each rank steps on half the batch, the two "
+            f"queue on one card and all-reduce through the host), plain "
+            f"{runs['plain'][1]:.2f}")
+    return {"dp_vocode_rank0": res[0]["launches"],
+            "dp_vocode_rank1": res[1]["launches"],
+            "dp_train_rank0": res[0]["train_launches"]}
+
+
+def nccl_cards_main() -> int:
+    """``chip_smoke.py --nccl-cards``, on a host of N >= 2 cards: the
+    port's worker (``etts_torch.parallel._multihost_worker``) on one card
+    and on N NCCL ranks, a card each (the ranks within 1e-6 of each other,
+    within 2e-4 of one card: tests/test_multihost.py's bars), its
+    checkpoint case on N ranks (one file, one log line, the resumed losses
+    equal); then ``train_autoregressive`` under torchrun on N ranks
+    against the plain driver on one card, phase 9's corpus and config,
+    DP_STEPS steps: the first step's loss within DP_LOSS_TOL. Exits 1 on
+    a failed check."""
+    import os
+    import shutil
+    import torch
+    from etts_torch.utils.config import ConfigManager
+    from etts_torch.utils.logging import read_scalars
+    n = torch.cuda.device_count()
+    cl = card()
+    say(cl, f"{n} cards: {', '.join(torch.cuda.get_device_name(i) for i in range(n))}")
+    if n < 2:
+        print("chip_smoke: --nccl-cards needs two cards or more",
+              file=sys.stderr)
+        return 2
+    failures, root = [], ROOT / "build" / "nccl_cards"
+    root.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(
+        1, len(os.sched_getaffinity(0)) // n)))
+
+    def worker(nprocs, *extra):
+        """The worker's commands for ``nprocs`` ranks on a free port."""
+        port = str(_free_port())
+        return [[sys.executable, "-m", "etts_torch.parallel._multihost_worker",
+                 "--device", "cuda", "--port", port, "--process_id", str(r),
+                 "--num_processes", str(nprocs), "--dist_backend", "nccl",
+                 *extra] for r in range(nprocs)]
+
+    def run(cmds):
+        """Run the commands together, the r-th with LOCAL_RANK r, at most
+        DP_TIMEOUT s; their outputs."""
+        procs = [subprocess.Popen(
+            c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=dict(env, LOCAL_RANK=str(r)))
+            for r, c in enumerate(cmds)]
+        outs = []
+        for p, c in zip(procs, cmds):
+            try:
+                outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n(stopped at the limit)")
+            if p.returncode != 0:
+                failures.append(f"{' '.join(c[1:3])}: {outs[-1][-2000:]}")
+        return outs
+
+    def value(tag, out):
+        m = re.search(rf"{tag} ([-\d.einf]+)", out)
+        return float(m.group(1)) if m else float("nan")
+
+    t0 = time.perf_counter()
+    one = value("MULTIHOST_LOSS", run(worker(1))[0])
+    losses = [value("MULTIHOST_LOSS", o) for o in run(worker(n))]
+    apart = max(abs(x - losses[0]) for x in losses) / abs(losses[0])
+    rel = abs(losses[0] - one) / abs(one)
+    say(cl, f"worker (forward step, dropout on): one card {one:.8f}; {n} "
+            f"NCCL ranks {losses}: {apart:.2e} apart (bar 1e-6), "
+            f"{rel:.2e} from one card (bar 2e-4)")
+    if not (apart <= 1e-6 and rel <= 2e-4):
+        failures.append("worker losses")
+    ckpt = root / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    outs = run(worker(n, "--ckpt_dir", str(ckpt)))
+    resumed = [value("MULTIHOST_RESUME_LOSS", o) for o in outs]
+    files = sorted(p.name for p in ckpt.iterdir() if p.is_file())
+    lines = len((ckpt / "logs/scalars.jsonl").read_text().splitlines())
+    say(cl, f"worker, checkpoint case: resumed losses {resumed}, files "
+            f"{files}, log lines {lines}; {time.perf_counter() - t0:.1f} s")
+    if not (len(set(resumed)) == 1 and files == ["ckpt-1.pt"]
+            and lines == 1):
+        failures.append("worker checkpoint case")
+
+    t0 = time.perf_counter()
+    _, cdir = phase9_config()
+    base = ["-m", "etts_torch.train_autoregressive", "--config", str(cdir),
+            "--max_steps", str(DP_STEPS)]
+    run([[sys.executable, *base, "--session_name", "cards_plain"]])
+    out = run([[sys.executable, "-m", "torch.distributed.run",
+                "--nproc_per_node", str(n), "--master_port",
+                str(_free_port()), *base, "--session_name", "cards_nccl",
+                "--multihost"]])[0]
+    sc = {s: read_scalars(ConfigManager(cdir, "autoregressive", s).log_dir)
+          for s in ("cards_plain", "cards_nccl")}
+    first = {s: v["train/loss"][0] for s, v in sc.items()}
+    rel = abs(first["cards_nccl"] - first["cards_plain"]) / abs(
+        first["cards_plain"])
+    ms = {s: [round(v["time/step_ms"][i], 2) for i in range(DP_STEPS)]
+          for s, v in sc.items()}
+    say(cl, f"train_autoregressive under torchrun, {n} NCCL ranks (a card "
+            f"each, the batch of 8 split {n} ways): first step's loss {first['cards_nccl']:.8f} against "
+            f"the plain driver's {first['cards_plain']:.8f} on one card, "
+            f"relative {rel:.2e} (tol {DP_LOSS_TOL}); ms a step (host "
+            f"clock, steps 0-{DP_STEPS - 1}, the first a warm-up) {ms}; "
+            f"progress printed by rank 0 alone: "
+            f"{out.count('step 0: loss') == 1}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    if not (rel <= DP_LOSS_TOL and out.count("step 0: loss") == 1):
+        failures.append("train_autoregressive under torchrun")
+    if failures:
+        print(f"failed: {failures}", file=sys.stderr)
+        return 1
+    print(cl, flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3867,6 +4341,11 @@ def main() -> int:
     pin_float32()
     if sys.argv[1:2] == [SIDE]:
         return side_main(Path(sys.argv[2]))
+    if sys.argv[1:2] == [DP_RANK]:
+        return dp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                            Path(sys.argv[4]))
+    if sys.argv[1:2] == [NCCL_CARDS]:
+        return nccl_cards_main()
 
     # ---- 1. card, build ----
     cl = card()
@@ -4487,6 +4966,11 @@ def main() -> int:
     t0 = time.perf_counter()
     paths |= bf16_phase(cl, tts, voc, ref_mel, spk, dec_s, failures)
     say(cl, f"phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 16. data parallelism: two ranks on the card, one NCCL rank ----
+    t0 = time.perf_counter()
+    paths |= dp_phase(cl, voc, failures)
+    say(cl, f"phase 16 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "fused_decode", "route": "cuda",

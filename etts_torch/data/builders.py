@@ -183,10 +183,15 @@ def _quantize(y, mode: str, bits: int, mu_law: bool,
 
 def build_vocoder_dataset(wav_dir, out_dir, config: dict, *, mode="MOL",
                           bits=9, mu_law=True, peak_norm=False,
-                          extension=".wav", njobs=16, device="cpu") -> str:
+                          extension=".wav", njobs=16, device="cuda") -> str:
     """The store of every ``*{extension}`` in ``wav_dir`` (sorted) under
     ``out_dir``, read at the config's ``sampling_rate``; returns
-    ``out_dir``."""
+    ``out_dir``. The mels are computed on ``device``; this raises on
+    "cuda" without a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build the "
+                           "store on the CPU")
     out = Path(out_dir)
     (out / "mel").mkdir(parents=True, exist_ok=True)
     (out / "quant").mkdir(parents=True, exist_ok=True)

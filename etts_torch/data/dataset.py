@@ -142,15 +142,20 @@ def _pad_batch(arrays, pad_multiple=None):
 class Dataset:
     """Shuffling, padded-batching, endlessly repeating iterator over samples
     (`data_handling.py:10-56`): ``next_batch``, ``change_batches``,
-    ``seek``; optional length bucketing."""
+    ``seek``; optional length bucketing. ``shard_index`` of
+    ``num_shards``: a host's own part of the samples, every
+    ``num_shards``-th from ``shard_index`` (`etts/data/dataset.py:175-178`;
+    the training drivers instead run the whole stream on every rank and
+    keep their rows of each global batch, ``parallel.local_shard``)."""
 
     def __init__(self, samples, preprocessor: Callable, batch_size: int,
                  shuffle=True, drop_remainder=True, mel_channels=80, seed=42,
                  pad_text_multiple: Optional[int] = 8,
                  pad_mel_multiple: Optional[int] = 32,
+                 shard_index: int = 0, num_shards: int = 1,
                  bucket_by_length: bool = False, bucket_groups: int = 32):
         self._random = Random(seed)
-        self._samples = list(samples)
+        self._samples = list(samples)[shard_index::num_shards]
         self.preprocessor = preprocessor
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -163,6 +168,10 @@ class Dataset:
         self.bucket_by_length = bucket_by_length
         self.bucket_groups = bucket_groups
         self.data_iter = self._infinite_iter()
+
+    def __len__(self):
+        """The samples of this shard."""
+        return len(self._samples)
 
     def _collate(self, items):
         """(mel, tokens, stop, spk[, gta mel]) items, or the forward

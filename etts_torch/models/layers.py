@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops.gru import gru_scan
 from ..ops.masking import positional_encoding
+from ..parallel import collectives
 
 LN_EPS = 1e-6
 BN_EPS = 1e-3          # flax BatchNorm(epsilon=1e-3) in CNNResNorm / GST
@@ -126,13 +127,14 @@ class BatchNorm2d(Compute, nn.BatchNorm2d):
 def variable_rate_dropout(x, rate: float, generator=None):
     """Inverted dropout that is always applied: keep where u < 1 - rate, u
     drawn from ``generator`` on its own device (a CPU generator gives a
-    card's x the CPU's draws); rate 0 is the identity and draws nothing."""
+    card's x the CPU's draws); rate 0 is the identity and draws nothing.
+    In a data-parallel step x holds the rank's rows, and u is their part of
+    the global batch's draw (``parallel.collectives.rand``)."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate   # x / keep rounds once, in x's dtype
-    u = torch.rand(x.shape, generator=generator,
-                   device=x.device if generator is None
-                   else generator.device).to(x.device)
+    u = collectives.rand(x.shape, generator, x.device if generator is None
+                         else generator.device).to(x.device)
     return torch.where(u < keep, x / max(keep, 1e-8), torch.zeros_like(x))
 
 
@@ -166,7 +168,9 @@ def batch_norm(bn, x, train: bool, momentum: float = BN_MOMENTUM):
     running = momentum * running + (1 - momentum) * batch) under no_grad,
     as flax's mutable ``batch_stats``. A ``bn`` of compute dtype bf16
     normalises (and takes the batch's statistics) in float32 and returns
-    bf16, as flax's ``_normalize`` does."""
+    bf16, as flax's ``_normalize`` does. In a data-parallel step the
+    batch is the global one: the rank's moments are averaged over the
+    ranks, the gradient through them (``_global_batch_norm``)."""
     dtype = getattr(bn, "dtype", torch.float32)
     if dtype != torch.float32:
         return _batch_norm(bn, x.float(), train, momentum).to(dtype)
@@ -177,12 +181,34 @@ def _batch_norm(bn, x, train: bool, momentum: float):
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
+    if collectives.sharded():
+        return _global_batch_norm(bn, x, momentum)
     with torch.no_grad():
         dims = [0, *range(2, x.dim())]
         for stat, batch in ((bn.running_mean, x.mean(dims)),
                             (bn.running_var, x.var(dims, unbiased=False))):
             stat.mul_(momentum).add_(batch, alpha=1 - momentum)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def _global_batch_norm(bn, x, momentum: float):
+    """``_batch_norm`` in train mode on the global batch of a
+    data-parallel step, x this rank's rows: the mean, then the biased
+    variance about it, each averaged over the ranks (equal-size parts) with
+    the gradient through the average; the running statistics move by
+    them."""
+    dims = [0, *range(2, x.dim())]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    mean = collectives.mean_over_ranks(x.mean(dims))
+    centred = x - mean.view(shape)
+    var = collectives.mean_over_ranks(centred.square().mean(dims))
+    with torch.no_grad():
+        for stat, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+            stat.mul_(momentum).add_(batch, alpha=1 - momentum)
+    y = centred * torch.rsqrt(var + bn.eps).view(shape)
+    if bn.weight is not None:
+        y = y * bn.weight.view(shape) + bn.bias.view(shape)
+    return y
 
 
 class _RenormSoftmax(torch.autograd.Function):
@@ -281,8 +307,8 @@ class MultiHeadAttention(nn.Module):
         out, w = attention(q, k, v, mask)
         b, h, tq, _ = out.shape
         if train and drop_n_heads:
-            out = head_drop(out, drop_n_heads, torch.rand(
-                b, h, generator=generator, device=out.device))
+            out = head_drop(out, drop_n_heads, collectives.rand(
+                (b, h), generator, out.device))
         concat = out.transpose(1, 2).reshape(b, tq, self.model_dim)
         return self.dense(torch.cat([q_in, concat], -1)), w
 

@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.gru import gru_scan
+from ..parallel import collectives
 from .layers import BN_EPS, batch_norm
 
 __all__ = ["TacoPrenet", "ConvBN1D", "Highway", "CBHG",
@@ -411,19 +412,30 @@ class Tacotron(nn.Module):
         "decoder_prenet": (max_iters, b, P)}, P = sum(prenet_depths); with
         ``zoneout``, those of a training ``forward`` of max_iters decoder
         steps: also "zoneout": (max_iters, 2 LSTMs, (c, h), b,
-        rnn_depth), drawn after the others."""
+        rnn_depth), drawn after the others. In a data-parallel step b is
+        the rank's rows, and each draw is their part of the global batch's
+        (``parallel.collectives``)."""
+        rank, world = (collectives.rank_world() if collectives.sharded()
+                       else (0, 1))
         p, steps = sum(self.prenet_depths), max_iters or self.max_iters
-        shapes = {"encoder_prenet": (b, n, p),
+        g = b * world
+        shapes = {"encoder_prenet": (g, n, p),
                   "style": (self.num_heads, self.num_gst),
-                  "decoder_prenet": (steps, b, p)}
+                  "decoder_prenet": (steps, g, p)}
         if zoneout:
-            shapes["zoneout"] = (steps, 2, 2, b, self.rnn_depth)
+            shapes["zoneout"] = (steps, 2, 2, g, self.rnn_depth)
         sizes = [math.prod(s) for s in shapes.values()]
         flat = torch.rand(sum(sizes),
                           generator=torch.Generator().manual_seed(seed))
         flat = flat.to(device)
-        return {k: part.view(s) for (k, s), part in
-                zip(shapes.items(), flat.split(sizes))}
+        out = {k: part.view(s) for (k, s), part in
+               zip(shapes.items(), flat.split(sizes))}
+        if world > 1:
+            batch_dim = {"encoder_prenet": 0, "decoder_prenet": 1,
+                         "zoneout": 3}
+            out.update({k: out[k].narrow(d, rank * b, b)
+                        for k, d in batch_dim.items() if k in out})
+        return out
 
     def encode(self, inputs, reference_mel, uniforms: dict,
                train: bool = False):

@@ -24,6 +24,8 @@ from ..ops.kernels.wavernn_cell import (Int8SampleLoopWeights,
                                         SampleLoopWeights,
                                         wavernn_sample_loop)
 from ..ops.normalizers import mu_law_decode
+from ..parallel.collectives import gather_rows, rank_world
+from ..utils.seeds import fold_in
 from .layers import batch_norm
 
 BN_EPS = 1e-5          # flax BatchNorm default
@@ -398,3 +400,45 @@ def generate_batch(model: WaveRNN, mels_list, *, target: int = 11000,
     rows = samples.T.split(counts)
     return [_finalize(r, True, overlap, mu_law, model, n)
             for r, n in zip(rows, wave_lens)]
+
+
+@torch.no_grad()
+def generate_batch_sharded(model: WaveRNN, mels_list, *, target: int = 11000,
+                           overlap: int = 550, mu_law: bool = True,
+                           seed: int = 0, weights=None):
+    """Fold-parallel vocoding across the ranks of a process group
+    (`etts/models/wavernn.py:721-794`): each utterance is upsampled and
+    folded as in ``generate_batch``, the fold rows of all utterances are
+    concatenated and padded with zero rows to a multiple of the world size,
+    and each rank runs its equal share of them through one sample-loop
+    launch (B1 on the card) seeded ``fold_in(seed, rank)``, as etts folds
+    its key by the mesh index; the rows are then gathered (one all-reduce,
+    exact) and every rank finalizes every utterance. Returns the list of
+    waveforms on every rank. With no process group (or a group of one) it
+    is ``generate_batch(..., seed=fold_in(seed, 0))``. No int8 mode, as
+    etts' sharded path has none. The row pad to a multiple of 8 (the TPU
+    sublane) is not ported, as in ``generate_batch``."""
+    rank, world = rank_world()
+    mu_law = mu_law and model.mode == "RAW"
+    ups, auxs, counts, wave_lens = [], [], [], []
+    for mel in mels_list:
+        mel = torch.as_tensor(mel, device=model.I.weight.device)
+        mel = mel[None] if mel.ndim == 2 else mel
+        wave_lens.append((mel.shape[1] - 1) * model.hop_length)
+        up, aux = _upsample_fold(model, mel, True, target, overlap)
+        ups.append(up)
+        auxs.append(aux)
+        counts.append(up.shape[0])
+    cond = _conditioning_streams(torch.cat(ups), torch.cat(auxs))
+    rows = cond.shape[1]
+    per = -(-rows // world)
+    cond = F.pad(cond, (0, 0, 0, per * world - rows))
+    if weights is None:
+        weights = _default_weights(model, None)
+    samples, _ = wavernn_sample_loop(
+        cond[:, rank * per:(rank + 1) * per].contiguous(), weights,
+        mode=model.mode, n_classes=model.n_classes,
+        seed=fold_in(seed, rank))
+    samples = gather_rows(samples, dim=1)[:, :rows]
+    return [_finalize(r, True, overlap, mu_law, model, n)
+            for r, n in zip(samples.T.split(counts), wave_lens)]

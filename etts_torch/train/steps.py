@@ -17,7 +17,11 @@ The joint TTS + MINE step, as the reference's `traning_steps.py`:
   - each MINE net climbs its own MI estimate (CLUB its log-likelihood).
 
 Steps update their state in place and return metrics as tensors on the
-device (no host sync). Per-step randomness comes from generators seeded by
+device (no host sync). Under a process group of more than one rank each
+train step is its rank's part of the global batch's step
+(``parallel.collectives``): the batch holds the rank's rows, the
+gradients are averaged over the ranks before the update, and the metrics
+are the global batch's. Per-step randomness comes from generators seeded by
 ``fold_in(rng, stream)``, and the driver passes ``rng = fold_in(seed,
 step)``, as etts folds its keys, so a resumed run draws what an
 uninterrupted one draws.
@@ -25,27 +29,22 @@ uninterrupted one draws.
 from __future__ import annotations
 
 import contextlib
-import hashlib
 
 import torch
 
 from ..models.mine import MIState, pair_draws
 from ..models.tacotron import tacotron_loss
 from ..models.wavernn import discretized_mix_logistic_loss, raw_loss
+from ..parallel import collectives
 from ..utils.losses import (l2_loss, masked_mean_absolute_error,
                             new_scaled_crossentropy, weighted_sum_losses)
+from ..utils.seeds import fold_in
 
 __all__ = ["fold_in", "generator", "frozen_batch_stats",
            "make_forward_train_step", "make_forward_val_step",
            "make_autoregressive_train_step", "make_autoregressive_val_step",
            "make_mine_update", "make_mine_zoo_update",
            "make_wavernn_train_step", "make_tacotron_train_step"]
-
-
-def fold_in(seed: int, data: int) -> int:
-    """A 63-bit seed derived from ``seed`` and ``data``."""
-    h = hashlib.blake2b(f"{seed}:{data}".encode(), digest_size=8).digest()
-    return int.from_bytes(h, "little") >> 1
 
 
 def generator(seed: int, device) -> torch.Generator:
@@ -68,10 +67,11 @@ def frozen_batch_stats(module: torch.nn.Module):
 
 def _grads(loss, params):
     """d loss / d params; zeros for a parameter the loss does not reach
-    (as JAX gives)."""
+    (as JAX gives); in a data-parallel step, their mean over the ranks."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for p, g in zip(params, grads)]
+    return collectives.average_gradients(
+        [torch.zeros_like(p) if g is None else g
+         for p, g in zip(params, grads)])
 
 
 def _forward_losses(model, batch, max_frames: int, train: bool, gen):
@@ -98,11 +98,12 @@ def make_forward_train_step(model, max_frames: int):
     phonemes, durations) on the model's device, dropout drawn from
     ``generator(rng)`` (`etts/train/steps.py:50-86`). Metrics: {"loss",
     "mel_loss", "duration_loss"}."""
+    @collectives.sharded_step
     def step(state, batch, rng: int):
         _, loss, vals = _forward_losses(model, batch, max_frames, True,
                                         generator(rng, batch[0].device))
         state.apply_gradients(_grads(loss, state.params))
-        return _forward_metrics(loss, vals)
+        return collectives.global_mean(_forward_metrics(loss, vals))
 
     return step
 
@@ -156,10 +157,12 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
     checkpoint's teacher-forced mel (its GO frame exact), the targets and
     the style reference stay ground truth. Metrics: {"loss", "tts_loss",
     "style_loss", "mi_live", "losses": {"output", "stop_prob",
-    "mel_linear"}}; aux: text_enc_output, gst_output (detached),
-    decoder_attention, reduced_target, final_output."""
+    "mel_linear"}}; aux: text_enc_output, gst_output (detached; the global
+    batch's rows, which the zoo reads), decoder_attention, reduced_target,
+    final_output (the rank's rows)."""
     loss_fns = _loss_fns(stop_scaling)
 
+    @collectives.sharded_step
     def step(state, batch, mi_loss, rng: int, *, r: int,
              prenet_dropout: float = 0.5, drop_n_heads: int = 0,
              ss_rate: float = 0.0):
@@ -183,9 +186,9 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
             # frame and shift + r-stride as the targets are
             pred = torch.cat([mel[:, :1], out1["final_output"][:, :mel_len]],
                              1)[:, :-1][:, 0::r]
-            mix = torch.rand(tar_mel.shape[0], tar_mel.shape[1], 1,
-                             generator=generator(fold_in(ss_rng, 1), dev),
-                             device=dev) < ss_rate
+            mix = collectives.rand(
+                (tar_mel.shape[0], tar_mel.shape[1], 1),
+                generator(fold_in(ss_rng, 1), dev), dev) < ss_rate
             dec_inp = torch.where(mix, pred, tar_mel)
             style_tar = tar_mel
         out = model(phonemes, dec_inp, spk_in, train_text_encoder,
@@ -202,15 +205,24 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
                     generator(fold_in(rng, 7), dev))[0]
             style_loss = l2_loss(gst2, out["gst_output"])
         tts_total = tts_loss + style_loss
-        if adversarial_mine is not None:
-            spk_m = (spk_in if model.has_speaker
-                     else mel.new_zeros(mel.shape[0], 1, 1))
-            text = out["text_enc_output"]
+        # the zoo reads the global batch, as its estimates are not means
+        # over rows (gather_rows: the rows themselves in a single process);
+        # in the tape only where the zoo's estimate is
+        adversarial = adversarial_mine is not None
+
+        def rows(x):
+            return (None if x is None else collectives.gather_rows(
+                x if adversarial else x.detach()))
+        gst, text = rows(out["gst_output"]), rows(out["text_enc_output"])
+        if adversarial:
+            spk_m = collectives.gather_rows(
+                spk_in if model.has_speaker
+                else mel.new_zeros(mel.shape[0], 1, 1))
             mi_live = tts_loss.new_zeros(())
             for i, (kind, net) in enumerate(adversarial_mine):
                 draws = pair_draws(text.shape[0], text.shape[1], generator(
                     fold_in(rng, 101 + i), dev))
-                res = net(text, out["gst_output"], spk_m, mi_loss, draws)
+                res = net(text, gst, spk_m, mi_loss, draws)
                 # MINE -> (mi, terms); CLUB -> (lld, bound): the bound
                 mi_live = mi_live + (res[1] if kind == "CLUB" else res[0])
         else:
@@ -218,14 +230,13 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
                                       device=dev).detach()
         total = tts_total + mi_weight_factor * mi_live.clamp(min=0.0)
         state.apply_gradients(_grads(total, state.params))
-        metrics = {"loss": total.detach(), "tts_loss": tts_total.detach(),
-                   "style_loss": style_loss.detach(),
-                   "mi_live": mi_live.detach(),
-                   "losses": {k: v.detach() for k, v in zip(
-                       ("output", "stop_prob", "mel_linear"), vals)}}
+        metrics = collectives.global_mean(
+            {"loss": total.detach(), "tts_loss": tts_total.detach(),
+             "style_loss": style_loss.detach(), "mi_live": mi_live.detach(),
+             "losses": {k: v.detach() for k, v in zip(
+                 ("output", "stop_prob", "mel_linear"), vals)}})
         detach = lambda x: None if x is None else x.detach()
-        aux = {"text_enc_output": detach(out["text_enc_output"]),
-               "gst_output": detach(out["gst_output"]),
+        aux = {"text_enc_output": detach(text), "gst_output": detach(gst),
                "decoder_attention": {k: v.detach() for k, v in
                                      out["decoder_attention"].items()},
                "reduced_target": tar_mel,
@@ -315,13 +326,14 @@ def make_wavernn_train_step(model):
     mode, whose BatchNorm moves its running statistics, then the
     discretized-MoL loss (MOL, y floats) or the cross-entropy (RAW, y
     int64 labels). No randomness: the step takes no seed."""
+    @collectives.sharded_step
     def step(state, batch):
         x, y, mels = batch
         logits = model(x, mels, train=True)
         loss = (discretized_mix_logistic_loss(logits, y[..., None])
                 if model.mode == "MOL" else raw_loss(logits, y))
         state.apply_gradients(_grads(loss, state.params))
-        return {"loss": loss.detach()}
+        return collectives.global_mean({"loss": loss.detach()})
 
     return step
 
@@ -337,6 +349,7 @@ def make_tacotron_train_step(model):
     uniforms are ``model.draw_uniforms(..., seed=rng, zoneout=True)``'s,
     drawn on the CPU: one rng gives every device the same. Metrics: {"loss", "mel_loss", "linear_loss",
     "ref_enc_loss", "alignments" (b, t // r, n)}, on the device."""
+    @collectives.sharded_step
     def step(state, batch, rng: int):
         inputs, input_lengths, mel_targets, linear_targets = batch
         uniforms = model.draw_uniforms(
@@ -347,8 +360,9 @@ def make_tacotron_train_step(model):
                     train=True)
         loss, parts = tacotron_loss(out, mel_targets, linear_targets)
         state.apply_gradients(_grads(loss, state.params))
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in parts.items()},
-                "alignments": out["alignments"].detach()}
+        return collectives.global_mean(
+            {"loss": loss.detach(),
+             **{k: v.detach() for k, v in parts.items()},
+             "alignments": out["alignments"].detach()})
 
     return step

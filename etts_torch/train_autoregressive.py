@@ -3,7 +3,9 @@
 
     python -m etts_torch.train_autoregressive --config DIR \\
         [--session_name NAME] [--reset_dir --force] [--max_steps N] \\
-        [--gta_mel_dir DIR] [--profile_dir DIR] [--device cuda|cpu]
+        [--gta_mel_dir DIR] [--profile_dir DIR] [--device cuda|cpu] \\
+        [--multihost [--coordinator_address HOST:PORT --num_processes N \\
+         --process_id R] [--dist_backend nccl|gloo]]
 
 ``DIR`` holds ``data_config.yaml`` and ``autoregressive_config.yaml``; the
 corpus under ``train_data_directory`` (else ``data_directory``) is what
@@ -33,6 +35,18 @@ Every random draw of a step comes from generators seeded from
 ``fold_in(42, step)``: a resumed run draws what an uninterrupted one does.
 On the card the run never moves to the CPU; a loss that is not finite, or
 above 1e4, raises.
+
+Data parallelism (``--multihost``, ``etts_torch.parallel``): one process a
+rank, started by torchrun or given the coordinator's address, its size and
+its rank; each runs the whole data stream and trains on its rows of each
+global batch of ``tts_batch_size``, the step being the global batch's
+(the same BatchNorm statistics, noise and losses, the gradients averaged
+over the ranks), and the MINE zoo updates on the global batch on every
+rank (with ``mine_sep_call``, on its own whole batch). Rank 0 alone
+prints, logs, predicts and writes checkpoints, which every rank then
+restores from. ``sequence_parallel: N`` (context parallelism over a
+``seq`` axis) is not ported: with N ranks or more it raises, with fewer
+the run is data-parallel, as etts falls back.
 """
 from __future__ import annotations
 
@@ -49,6 +63,9 @@ from .models.autoregressive import autoregressive_predict
 from .models.init import init_flax
 from .models.mine import CLUB, MINE, MIState
 from .ops.audio import AudioProcessor
+from .parallel import (add_multihost_args, barrier, is_primary,
+                       local_device, local_shard, maybe_init_multihost,
+                       rank_world, replicate)
 from .text import default_tokenizer
 from .train.state import FROZEN_PRETRAINED, TrainState
 from .train.steps import (fold_in, frozen_batch_stats, generator,
@@ -122,12 +139,12 @@ def main(argv=None):
                         help="write a torch.profiler trace of steps "
                         "start + 10 to start + 30 here")
     parser.add_argument("--device", default="cuda")
+    add_multihost_args(parser)
     args = parser.parse_args(argv)
+    maybe_init_multihost(args)      # before any device use
     pin_float32()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to train on "
-                           "the CPU")
+    device = local_device(args.device)
+    primary = is_primary()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     sync = ((lambda: torch.cuda.synchronize(device))
@@ -135,9 +152,18 @@ def main(argv=None):
 
     cm = ConfigManager(args.config, "autoregressive", args.session_name)
     config = cm.config
-    cm.create_remove_dirs(clear_dir=args.reset_dir, force=args.force)
-    cm.dump_config()
-    print(f"session {cm.session_name} in {cm.base_dir}")
+    seq_n, world = int(config.get("sequence_parallel", 1)), rank_world()[1]
+    if seq_n > 1 and world >= seq_n:
+        raise NotImplementedError(
+            f"sequence_parallel: {seq_n} over {world} ranks: context "
+            "parallelism over a 'seq' axis is not ported yet (ROADMAP "
+            "Queue A 7, tensor and sequence parallelism)")
+    if primary:
+        cm.create_remove_dirs(clear_dir=args.reset_dir, force=args.force)
+        cm.dump_config()
+        print(f"session {cm.session_name} in {cm.base_dir}"
+              + (f", {world} ranks" if world > 1 else ""))
+    barrier()
     tokenizer = default_tokenizer(add_start_end=True)
     model = build_tts(config, tokenizer.vocab_size)
     init_flax(model, torch.Generator().manual_seed(SEED)).to(device)
@@ -176,7 +202,9 @@ def main(argv=None):
     if rstep is not None:
         state.load_state_dict(tree)
         mi_state.load_state_dict(tree["mi_state"])
-        print(f"restored TTS weights at step {rstep}")
+        if primary:
+            print(f"restored TTS weights at step {rstep}")
+    replicate(state)
 
     # the MINE zoo -----------------------------------------------------------
     mine_nets, mine_states, mine_ckpts = [], [], []
@@ -193,7 +221,7 @@ def main(argv=None):
             net_tree, _ = mngr.restore(map_location=device)
             if net_tree is not None:
                 st.load_state_dict(net_tree)
-            mine_states.append(st)
+            mine_states.append(replicate(st))
             mine_ckpts.append(mngr)
     # an empty zoo (no pairs for the system type) trains without MI
     mine_zoo_step = make_mine_zoo_update(mine_nets) if mine_nets else None
@@ -230,11 +258,12 @@ def main(argv=None):
     loader = Prefetcher(dataset)
     sync_every = int(config.get("metrics_sync_frequency", 10))
     trace = (StepTrace(args.profile_dir, start_step + 10, start_step + 30,
-                       device) if args.profile_dir else None)
+                       device) if args.profile_dir and primary else None)
     audio = None            # the Griffin-Lim of the prediction audio
     try:
         for step in range(start_step, max_steps):
-            host_batch = loader.next_batch()
+            global_batch = loader.next_batch()
+            host_batch = local_shard(global_batch)
             batch = to_device(host_batch, device)
             rng = fold_in(SEED, step)
             r = step_schedule(step, config["reduction_factor_schedule"])
@@ -254,7 +283,7 @@ def main(argv=None):
                 sync()
             t1 = time.perf_counter()
             log.add_scalar("time/step_ms", (t1 - t0) * 1e3, step)
-            mel = host_batch[0]
+            mel = global_batch[0]
             log.add_scalar("meta/target_frames",
                            int((np.abs(mel[:, 1:]).max(-1) > 0).sum()), step)
 
@@ -271,11 +300,13 @@ def main(argv=None):
                             generator(fold_in(rng, 5), device))
                     text_out, gst_out = enc[6], enc[5]
                 else:
+                    # the global batch's embeddings and speakers
                     text_out, gst_out = aux["text_enc_output"], aux[
                         "gst_output"]
-                    spk_for_mine = (batch[3][:, None] if model.has_speaker
-                                    else batch[0].new_zeros(
-                                        batch[0].shape[0], 1, 1))
+                    spk_for_mine = (
+                        torch.from_numpy(global_batch[3]).to(device)[:, None]
+                        if model.has_speaker
+                        else batch[0].new_zeros(len(global_batch[0]), 1, 1))
                 rngs = [fold_in(rng, 200 + i) for i in range(len(mine_nets))]
                 mi_vals, terms = mine_zoo_step(mine_states, text_out, gst_out,
                                                spk_for_mine, mi_state, rngs)
@@ -294,9 +325,10 @@ def main(argv=None):
                 _guard(loss_val, step)
                 for w in avg_windows.values():
                     w.append(loss_val)
-                print(f"step {step}: loss {loss_val:.5f} " + " ".join(
-                    f"avg{n} {w.average:.4f}"
-                    for n, w in avg_windows.items()), flush=True)
+                if primary:
+                    print(f"step {step}: loss {loss_val:.5f} " + " ".join(
+                        f"avg{n} {w.average:.4f}"
+                        for n, w in avg_windows.items()), flush=True)
                 log.add_scalar("train/loss", loss_val, step)
                 log.add_scalar("train/tts_loss", float(metrics["tts_loss"]),
                                step)
@@ -321,7 +353,7 @@ def main(argv=None):
                 for mngr, st in zip(mine_ckpts, mine_states):
                     mngr.save(step + 1, st.state_dict())
 
-            if ((step + 1) % config["prediction_frequency"] == 0
+            if (primary and (step + 1) % config["prediction_frequency"] == 0
                     and step + 1 >= config.get("prediction_start_step", 0)):
                 mel, phon, _, spk = host_batch[:4]
                 ref = (model.encode_ref(torch.from_numpy(mel[0]).to(device),
@@ -353,7 +385,8 @@ def main(argv=None):
         loader.stop()
         if trace:
             trace.close()
-    print("Done.")
+    if primary:
+        print("Done.")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 ``scripts/train_forward.py``).
 
     python -m etts_torch.train_forward --config DIR [--session_name NAME] \\
-        [--max_steps N] [--force] [--device cuda|cpu]
+        [--max_steps N] [--force] [--device cuda|cpu] \\
+        [--multihost [--coordinator_address HOST:PORT --num_processes N \\
+         --process_id R] [--dist_backend nccl|gloo]]
 
 ``DIR`` holds ``data_config.yaml`` and ``forward_config.yaml``; the data
 are the triples ``extract_durations`` writes under the corpus,
@@ -21,6 +23,11 @@ durations are logged. Scalars go to ``forward_logs/scalars.jsonl``
 ``meta/max_memory_allocated``), the durations to
 ``val_durations_{step}.npy``. Dropout is drawn from ``fold_in(42, step)``:
 a resumed run draws what an uninterrupted one does.
+
+``--multihost``: data-parallel training, one process a rank, each on its
+rows of every global batch (``etts_torch.parallel``; as
+``train_autoregressive``); rank 0 alone prints, logs and validates and writes
+checkpoints.
 """
 from __future__ import annotations
 
@@ -35,6 +42,9 @@ import torch
 
 from .data.dataset import Dataset, ForwardDataPrepper, Prefetcher
 from .models.init import init_flax
+from .parallel import (add_multihost_args, barrier, is_primary,
+                       local_device, local_shard, maybe_init_multihost,
+                       replicate)
 from .text import default_tokenizer
 from .train.state import TrainState
 from .train.steps import (fold_in, make_forward_train_step,
@@ -94,12 +104,12 @@ def main(argv=None):
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--force", action="store_true")
     parser.add_argument("--device", default="cuda")
+    add_multihost_args(parser)
     args = parser.parse_args(argv)
+    maybe_init_multihost(args)      # before any device use
     pin_float32()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to train on "
-                           "the CPU")
+    device = local_device(args.device)
+    primary = is_primary()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     sync = ((lambda: torch.cuda.synchronize(device))
@@ -107,9 +117,11 @@ def main(argv=None):
 
     cm = ConfigManager(args.config, "forward", args.session_name)
     config = cm.config
-    cm.create_remove_dirs(force=args.force)
-    cm.dump_config()
-    print(f"session {cm.session_name} in {cm.base_dir}")
+    if primary:
+        cm.create_remove_dirs(force=args.force)
+        cm.dump_config()
+        print(f"session {cm.session_name} in {cm.base_dir}")
+    barrier()
     model = build_forward(config, default_tokenizer(False).vocab_size)
     init_flax(model, torch.Generator().manual_seed(SEED)).to(device)
     max_frames = int(config.get("max_frames", 1280))
@@ -142,8 +154,10 @@ def main(argv=None):
     tree, rstep = ckpt.restore(map_location=device)
     if rstep is not None:
         state.load_state_dict(tree)
-        print(f"restored weights at step {rstep}")
+        if primary:
+            print(f"restored weights at step {rstep}")
         dataset.seek(state.step)        # continue the stream, no replay
+    replicate(state)
     train_step = make_forward_train_step(model, max_frames)
     val_step = make_forward_val_step(model, max_frames)
 
@@ -156,7 +170,7 @@ def main(argv=None):
     try:
         for step in range(state.step, max_steps):
             host_batch = loader.next_batch()
-            batch = to_device(host_batch, device)
+            batch = to_device(local_shard(host_batch), device)
             sync()
             t0 = time.perf_counter()
             metrics = train_step(state, batch, fold_in(SEED, step))
@@ -171,16 +185,17 @@ def main(argv=None):
                 _guard(loss_val, step)
                 for w in avg_windows.values():
                     w.append(loss_val)
-                print(f"step {step}: loss {loss_val:.5f} " + " ".join(
-                    f"avg{n} {w.average:.4f}"
-                    for n, w in avg_windows.items()), flush=True)
+                if primary:
+                    print(f"step {step}: loss {loss_val:.5f} " + " ".join(
+                        f"avg{n} {w.average:.4f}"
+                        for n, w in avg_windows.items()), flush=True)
                 for k, v in metrics.items():
                     log.add_scalar(f"train/{k}", float(v), step)
             if ((step + 1) % config["weights_save_frequency"] == 0
                     or step + 1 == max_steps):
                 _guard(float(metrics["loss"]), step, " (before saving)")
                 ckpt.save(step + 1, state.state_dict())
-            if (val_dataset is not None
+            if (primary and val_dataset is not None
                     and (step + 1) % config["prediction_frequency"] == 0):
                 vm, out = val_step(
                     to_device(val_dataset.next_batch(), device),
@@ -194,7 +209,8 @@ def main(argv=None):
                            max_steps - 1)
     finally:
         loader.stop()
-    print("Done.")
+    if primary:
+        print("Done.")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """GST-Tacotron training driver (port of ``scripts/train_tacotron.py``).
 
     python -m etts_torch.train_tacotron --config DIR [--session_name NAME] \\
-        [--max_steps N] [--force] [--device cuda|cpu]
+        [--max_steps N] [--force] [--device cuda|cpu] \\
+        [--multihost [--coordinator_address HOST:PORT --num_processes N \\
+         --process_id R] [--dist_backend nccl|gloo]]
 
 ``DIR`` holds ``data_config.yaml`` and ``tacotron_config.yaml``; the store
 is its ``train_data_directory`` (else ``data_directory``), as
@@ -32,6 +34,11 @@ first alignment to ``tacotron_logs/train_alignment_{step}.npy``. A rerun
 resumes from the latest checkpoint (``restored weights at step N``) and
 replays the permutation stream to the batch it stopped at
 (``fast_forward_permutation``).
+
+``--multihost``: data-parallel training, one process a rank, each on its
+rows of every global batch (``etts_torch.parallel``; as
+``train_autoregressive``); rank 0 alone prints, logs and writes
+checkpoints.
 """
 from __future__ import annotations
 
@@ -45,6 +52,9 @@ import torch
 from .data.dataset import fast_forward_permutation
 from .models.init import init_flax
 from .models.tacotron import noam_learning_rate
+from .parallel import (add_multihost_args, barrier, is_primary,
+                       local_device, local_shard, maybe_init_multihost,
+                       replicate)
 from .text import text_to_sequence
 from .train.state import TrainState
 from .train.steps import fold_in, make_tacotron_train_step
@@ -140,12 +150,12 @@ def main(argv=None):
     parser.add_argument("--max_steps", type=int, default=100_000)
     parser.add_argument("--force", action="store_true")
     parser.add_argument("--device", default="cuda")
+    add_multihost_args(parser)
     args = parser.parse_args(argv)
+    maybe_init_multihost(args)      # before any device use
     pin_float32()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to train on "
-                           "the CPU")
+    device = local_device(args.device)
+    primary = is_primary()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     sync = ((lambda: torch.cuda.synchronize(device))
@@ -153,9 +163,11 @@ def main(argv=None):
 
     cm = ConfigManager(args.config, "tacotron", args.session_name)
     config = cm.config
-    cm.create_remove_dirs(force=args.force)
-    cm.dump_config()
-    print(f"session {cm.session_name} in {cm.base_dir}")
+    if primary:
+        cm.create_remove_dirs(force=args.force)
+        cm.dump_config()
+        print(f"session {cm.session_name} in {cm.base_dir}")
+    barrier()
     model = build_tacotron(config)
     init_flax(model, torch.Generator().manual_seed(INIT_SEED)).to(device)
     rows = load_taco_metadata(cm.train_datadir)
@@ -166,7 +178,9 @@ def main(argv=None):
     tree, rstep = ckpt.restore(map_location=device)
     if rstep is not None:
         state.load_state_dict(tree)
-        print(f"restored weights at step {rstep}")
+        if primary:
+            print(f"restored weights at step {rstep}")
+    replicate(state)
     step_fn = make_tacotron_train_step(model)
 
     rng = np.random.default_rng(SEED)
@@ -179,7 +193,7 @@ def main(argv=None):
     ckpt_every = config.get("checkpoint_interval", 1000)
     for step in range(state.step, args.max_steps):
         host, idx = next(batches)
-        batch = to_device(host, device)
+        batch = to_device(local_shard(host), device)
         sync()
         t0 = time.perf_counter()
         metrics = step_fn(state, batch, fold_in(SEED, step))
@@ -191,7 +205,8 @@ def main(argv=None):
         if step % sync_every == 0 or step + 1 == args.max_steps:
             loss = float(metrics["loss"])
             _guard(loss, step)
-            print(f"step {step}: loss {loss:.5f}", flush=True)
+            if primary:
+                print(f"step {step}: loss {loss:.5f}", flush=True)
             log.add_scalar("train/loss", loss, step)
             for k in ("mel_loss", "linear_loss", "ref_enc_loss"):
                 log.add_scalar(f"train/{k}", float(metrics[k]), step)
@@ -203,7 +218,8 @@ def main(argv=None):
         log.add_scalar("meta/max_memory_allocated",
                        torch.cuda.max_memory_allocated(device),
                        args.max_steps - 1)
-    print("Done.")
+    if primary:
+        print("Done.")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 
     python -m etts_torch.train_wavernn --config DIR --data STORE \\
         [--session_name NAME] [--lr LR] [--batch_size N] [--gta] \\
-        [--max_steps N] [--force] [--device cuda|cpu]
+        [--max_steps N] [--force] [--device cuda|cpu] \\
+        [--multihost [--coordinator_address HOST:PORT --num_processes N \\
+         --process_id R] [--dist_backend nccl|gloo]]
 
 ``DIR`` holds ``data_config.yaml`` and ``wavernn_config.yaml``; ``STORE``
 is what ``python -m etts_torch.preprocess_wavernn`` writes (``mel/``,
@@ -33,6 +35,11 @@ stream to the batch it stopped at (``fast_forward_permutation``); the crop
 stream restarts from its seed, by etts' design, so a resumed run takes the
 same utterances as an uninterrupted one, cropped elsewhere. A loss that is
 not finite, or above 1e4, raises.
+
+``--multihost``: data-parallel training, one process a rank, each on its
+rows of every global batch (``etts_torch.parallel``; as
+``train_autoregressive``); rank 0 alone prints, logs, vocodes and writes
+checkpoints.
 """
 from __future__ import annotations
 
@@ -50,6 +57,9 @@ from .data.dataset import (VocoderDataset, collate_vocoder,
                            fast_forward_permutation)
 from .models.init import init_flax
 from .models.wavernn import generate
+from .parallel import (add_multihost_args, barrier, is_primary,
+                       local_device, local_shard, maybe_init_multihost,
+                       replicate)
 from .train.state import TrainState
 from .train.steps import fold_in, make_wavernn_train_step
 from .train_autoregressive import _guard
@@ -132,12 +142,12 @@ def main(argv=None):
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--force", action="store_true")
     parser.add_argument("--device", default="cuda")
+    add_multihost_args(parser)
     args = parser.parse_args(argv)
+    maybe_init_multihost(args)      # before any device use
     pin_float32()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to train on "
-                           "the CPU")
+    device = local_device(args.device)
+    primary = is_primary()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     sync = ((lambda: torch.cuda.synchronize(device))
@@ -145,9 +155,11 @@ def main(argv=None):
 
     cm = ConfigManager(args.config, "wavernn", args.session_name)
     config = cm.config
-    cm.create_remove_dirs(force=args.force)
-    cm.dump_config()
-    print(f"session {cm.session_name} in {cm.base_dir}")
+    if primary:
+        cm.create_remove_dirs(force=args.force)
+        cm.dump_config()
+        print(f"session {cm.session_name} in {cm.base_dir}")
+    barrier()
     model = build_vocoder(config)
     init_flax(model, torch.Generator().manual_seed(INIT_SEED)).to(device)
 
@@ -165,7 +177,9 @@ def main(argv=None):
     tree, rstep = ckpt.restore(map_location=device)
     if rstep is not None:
         state.load_state_dict(tree)
-        print(f"restored vocoder weights at step {rstep}")
+        if primary:
+            print(f"restored vocoder weights at step {rstep}")
+    replicate(state)
     step_fn = make_wavernn_train_step(model)
 
     perm_rng = np.random.default_rng(PERM_SEED)
@@ -182,25 +196,28 @@ def main(argv=None):
     weight_dtype = (torch.bfloat16 if device.type == "cuda"
                     else torch.float32)
     for step in range(state.step, max_steps):
-        batch = to_device(next(batches), device)
+        global_batch = next(batches)
+        batch = to_device(local_shard(global_batch), device)
         sync()
         t0 = time.perf_counter()
         metrics = step_fn(state, batch)
         sync()
         log.add_scalar("time/step_ms", (time.perf_counter() - t0) * 1e3,
                        step)
-        log.add_scalar("meta/target_samples", batch[1].numel(), step)
+        log.add_scalar("meta/target_samples", global_batch[1].size, step)
         if step % sync_every == 0 or step + 1 == max_steps:
             loss_val = float(metrics["loss"])
             _guard(loss_val, step)
-            print(f"step {step}: loss {loss_val:.5f}", flush=True)
+            if primary:
+                print(f"step {step}: loss {loss_val:.5f}", flush=True)
             log.add_scalar("train/loss", loss_val, step)
         if (step + 1) % gen_every == 0 or step + 1 == max_steps:
             _guard(float(metrics["loss"]), step, " (before saving)")
             ckpt.save(step + 1, state.state_dict())
             weights = model.sample_weights(weight_dtype)
-            for k in range(min(config.get("voc_gen_at_checkpoint", 5),
-                               len(test_set))):
+            n_gen = min(config.get("voc_gen_at_checkpoint", 5),
+                        len(test_set)) if primary else 0
+            for k in range(n_gen):
                 mel, _ = test_set[k]
                 wav = generate(
                     model, torch.from_numpy(mel.T).to(device),
@@ -216,7 +233,8 @@ def main(argv=None):
         log.add_scalar("meta/max_memory_allocated",
                        torch.cuda.max_memory_allocated(device),
                        max_steps - 1)
-    print("Done.")
+    if primary:
+        print("Done.")
 
 
 if __name__ == "__main__":

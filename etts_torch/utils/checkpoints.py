@@ -3,7 +3,9 @@ file a step in a directory, ``ckpt-{step}.pt``, written by ``torch.save``
 (the port reads no orbax). A train state saves its model's ``state_dict``
 (parameters and BatchNorm statistics), its optimizer's and its step
 (``TrainState.state_dict``); the driver adds what else it carries.
-``max_to_keep`` keeps the newest files.
+``max_to_keep`` keeps the newest files. Under a process group rank 0
+writes and every rank waits for the file (a barrier), so that each can
+restore it.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..parallel.mesh import barrier, is_primary
 
 __all__ = ["CheckpointManager"]
 
@@ -40,13 +44,16 @@ class CheckpointManager:
         """Write ``tree`` (tensors, numbers, dicts and lists of them) as
         step ``step``: to a temporary file, then renamed, so that a run cut
         while saving leaves the last checkpoint whole; then drop the oldest
-        beyond ``max_to_keep``."""
-        tmp = self.directory / f".ckpt-{step}.pt.tmp"
-        torch.save(tree, tmp)
-        os.replace(tmp, self.path(step))
-        if self.max_to_keep:
-            for old in self.steps()[:-self.max_to_keep]:
-                self.path(old).unlink()
+        beyond ``max_to_keep``. Under a process group rank 0 writes, and
+        every rank returns once the file is whole."""
+        if is_primary():
+            tmp = self.directory / f".ckpt-{step}.pt.tmp"
+            torch.save(tree, tmp)
+            os.replace(tmp, self.path(step))
+            if self.max_to_keep:
+                for old in self.steps()[:-self.max_to_keep]:
+                    self.path(old).unlink()
+        barrier()
 
     def restore(self, step: Optional[int] = None, map_location=None):
         """(tree, step) of ``step`` or of the latest, or (None, None) where

@@ -7,15 +7,21 @@ predicted mel, and the values of a histogram, go to ``log_dir`` as
 ``.npy``, and so does an image's array (a Tacotron's alignment); audio
 goes there as ``.wav``. No TensorBoard writer: the card's machine has
 none. ``StepTrace`` is the ``torch.profiler`` trace of a range of training
-steps that etts' drivers take with ``jax.profiler``."""
+steps that etts' drivers take with ``jax.profiler``. Under a process group
+only rank 0 writes (`etts/utils/logging.py:44-50`): elsewhere a
+``ScalarLog`` makes nothing and each of its calls does nothing, so the
+drivers log unconditionally."""
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import is_primary
 
 __all__ = ["ValueWindow", "ScalarLog", "StepTrace", "read_scalars"]
 
@@ -46,17 +52,32 @@ class ValueWindow:
         self._values = []
 
 
+def _primary_only(method):
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        return method(self, *args, **kwargs) if self.primary else None
+    return wrapped
+
+
 class ScalarLog:
+    """The scalars, arrays and audio of a run under ``log_dir``, written
+    by the primary process only (``primary``; its calls return None
+    elsewhere)."""
+
     def __init__(self, log_dir):
         self.log_dir = Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.primary = is_primary()
+        if self.primary:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
         self.path = self.log_dir / "scalars.jsonl"
 
+    @_primary_only
     def add_scalar(self, tag: str, value, step: int):
         with open(self.path, "a") as f:
             f.write(json.dumps({"tag": tag, "value": float(value),
                                 "step": int(step)}) + "\n")
 
+    @_primary_only
     def _save(self, values, tag: str, step: int) -> Path:
         path = self.log_dir / f"{tag.replace('/', '_')}_{step}.npy"
         np.save(path, np.asarray(values, np.float32))
@@ -72,6 +93,7 @@ class ScalarLog:
         as _}_{step}.npy``."""
         return self._save(values, tag, step)
 
+    @_primary_only
     def add_audio(self, tag: str, wav, sample_rate: int, step: int) -> Path:
         """The waveform as ``{tag with / as _}_{step}.wav`` at
         ``sample_rate`` (``data.audio_io.save_wav``: 16-bit, scaled down

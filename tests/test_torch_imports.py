@@ -54,4 +54,8 @@ def test_port_imports_no_jax_flax_or_etts():
             "etts_torch.synthesize_speaker",
             "etts_torch.export_gst_embeddings",
             "etts_torch.eval_disentanglement",
-            "etts_torch.eval_expressive_control"} <= set(modules)
+            "etts_torch.eval_expressive_control", "etts_torch.parallel",
+            "etts_torch.parallel.mesh", "etts_torch.parallel.collectives",
+            "etts_torch.parallel._multihost_worker",
+            "etts_torch.train.transplant", "etts_torch.utils.seeds"
+            } <= set(modules)

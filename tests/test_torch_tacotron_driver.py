@@ -29,55 +29,19 @@ from etts.text import text_to_sequence as j_text_to_sequence
 from etts_torch import train_tacotron
 from etts_torch.api import TacotronSynthesizer
 from etts_torch.convert import export_flat
-from etts_torch.data.audio_io import save_wav
-from etts_torch.data.taco_builders import build_tacotron_dataset
 from etts_torch.data.taco_audio import taco_linear_and_mel
 from etts_torch.models.init import init_flax
 from etts_torch.train.steps import fold_in, make_tacotron_train_step
 from etts_torch.utils.config import ConfigManager, build_tacotron
 from etts_torch.utils.logging import read_scalars
-from torch_parity import ROOT, TACO_TINY, voc_wav
-
-# TACO_TINY as tacotron_config.yaml keys (etts' ref_proj_dim stays 128),
-# batches of 2, a checkpoint every 2 steps, the losses every step
-TACO_TRAIN = dict(
-    embed_depth=16, attention_depth=16, rnn_depth=16, num_freq=33,
-    outputs_per_step=2, prenet_depths=[16, 8], num_gst=4, num_heads=2,
-    style_embed_depth=16, style_att_dim=8, reference_filters=[4, 8],
-    reference_depth=8, cbhg_width=8, max_iters=6, batch_size=2,
-    checkpoint_interval=2, metrics_sync_frequency=1, griffin_lim_iters=2)
-AUDIO = dict(sampling_rate=16000, n_fft=64, hop_length=10, win_length=40,
-             mel_channels=10, f_min=0, f_max=None)
-TEXTS = ("Hello there.", "The quick brown fox, 2 times.", "Good morning!",
-         "Dr. Smith is here.", "What time is it?", "Thank you very much.")
+from torch_parity import TACO_AUDIO as AUDIO
+from torch_parity import TACO_TINY, taco_workspace, voc_wav
 
 
 @pytest.fixture
 def workspace(tmp_path):
-    """A config dir (configs/default's tacotron_config.yaml shrunk by
-    TACO_TRAIN, logs under ``logs``) and its store: 6 seeded wavs of
-    150-300 samples (15-30 frames) in the LJSpeech layout through
-    ``build_tacotron_dataset`` into ``taco_training``."""
-    rng = np.random.default_rng(0)
-    (tmp_path / "wavs").mkdir()
-    lines = []
-    for i, text in enumerate(TEXTS):
-        save_wav(voc_wav(rng, int(rng.integers(150, 301))),
-                 tmp_path / "wavs" / f"t{i}.wav", 16000)
-        lines.append(f"t{i}|{text}|{text}\n")
-    (tmp_path / "metadata.csv").write_text("".join(lines))
-    data = dict(AUDIO, data_directory=str(tmp_path),
-                train_data_directory=str(tmp_path / "taco_training"),
-                log_directory=str(tmp_path / "logs"))
-    taco = yaml.safe_load(open(ROOT / "configs/default" /
-                               "tacotron_config.yaml"))
-    taco.update(TACO_TRAIN)
-    for name, cfg in (("data", data), ("tacotron", taco)):
-        (tmp_path / f"{name}_config.yaml").write_text(yaml.safe_dump(cfg))
-    build_tacotron_dataset({**taco, **data},
-                           out_dir=data["train_data_directory"], njobs=1,
-                           device="cpu")
-    return tmp_path
+    """``torch_parity.taco_workspace``'s config dir and store."""
+    return taco_workspace(tmp_path)
 
 
 def run(d, session, steps, *extra):

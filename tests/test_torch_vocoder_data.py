@@ -119,6 +119,18 @@ def test_build_vocoder_dataset_matches_etts(tmp_path):
     _compare_stores(tmp_path / "cli", store)
 
 
+def test_build_vocoder_dataset_defaults_to_the_card(tmp_path):
+    """As its sibling builders: on the card unless asked for the CPU, and
+    without a card it raises."""
+    import inspect
+    from etts_torch.data.builders import build_vocoder_dataset
+    assert inspect.signature(build_vocoder_dataset).parameters[
+        "device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_vocoder_dataset(tmp_path, tmp_path / "store", VOC_AUDIO)
+
+
 @pytest.mark.parametrize("mu_law", [True, False], ids=["mu-law", "linear"])
 def test_raw_store_labels_match_etts(tmp_path, mu_law):
     """A RAW store's labels (9 bits, mu-law or linear) against etts'

@@ -611,6 +611,50 @@ def taco_pair(seed=0, flat=None, **over):
     return jm, unflatten(flat), tm
 
 
+# TACO_TINY as tacotron_config.yaml keys (etts' ref_proj_dim stays 128),
+# batches of 2, a checkpoint every 2 steps, the losses every step
+TACO_TRAIN = dict(
+    embed_depth=16, attention_depth=16, rnn_depth=16, num_freq=33,
+    outputs_per_step=2, prenet_depths=[16, 8], num_gst=4, num_heads=2,
+    style_embed_depth=16, style_att_dim=8, reference_filters=[4, 8],
+    reference_depth=8, cbhg_width=8, max_iters=6, batch_size=2,
+    checkpoint_interval=2, metrics_sync_frequency=1, griffin_lim_iters=2)
+TACO_AUDIO = dict(sampling_rate=16000, n_fft=64, hop_length=10,
+                  win_length=40, mel_channels=10, f_min=0, f_max=None)
+TACO_TEXTS = ("Hello there.", "The quick brown fox, 2 times.",
+              "Good morning!", "Dr. Smith is here.", "What time is it?",
+              "Thank you very much.")
+
+
+def taco_workspace(d: Path) -> Path:
+    """A config dir (configs/default's tacotron_config.yaml shrunk by
+    TACO_TRAIN, logs under ``logs``) and its store: 6 seeded wavs of
+    150-300 samples (15-30 frames) in the LJSpeech layout through
+    ``build_tacotron_dataset`` into ``taco_training``."""
+    from etts_torch.data.audio_io import save_wav
+    from etts_torch.data.taco_builders import build_tacotron_dataset
+    rng = np.random.default_rng(0)
+    (d / "wavs").mkdir()
+    lines = []
+    for i, text in enumerate(TACO_TEXTS):
+        save_wav(voc_wav(rng, int(rng.integers(150, 301))),
+                 d / "wavs" / f"t{i}.wav", 16000)
+        lines.append(f"t{i}|{text}|{text}\n")
+    (d / "metadata.csv").write_text("".join(lines))
+    data = dict(TACO_AUDIO, data_directory=str(d),
+                train_data_directory=str(d / "taco_training"),
+                log_directory=str(d / "logs"))
+    taco = yaml.safe_load(open(ROOT / "configs/default" /
+                               "tacotron_config.yaml"))
+    taco.update(TACO_TRAIN)
+    for name, cfg in (("data", data), ("tacotron", taco)):
+        (d / f"{name}_config.yaml").write_text(yaml.safe_dump(cfg))
+    build_tacotron_dataset({**taco, **data},
+                           out_dir=data["train_data_directory"], njobs=1,
+                           device="cpu")
+    return d
+
+
 # ---------------------------------------------------------------------------
 # vocoder training parity (test_torch_wavernn_*.py, test_torch_vocoder_data)
 # ---------------------------------------------------------------------------
@@ -666,7 +710,7 @@ def voc_store(d: Path, mode="MOL", n=10, seed=0, **over):
            **yaml.safe_load(open(d / "wavernn_config.yaml"))}
     return Path(build_vocoder_dataset(
         d / "wavs", d / "store", cfg, mode=mode, bits=cfg["bits"],
-        mu_law=cfg["mu_law"], njobs=2))
+        mu_law=cfg["mu_law"], njobs=2, device="cpu"))
 
 
 def voc_train_pair(mode="MOL", seed=0):
