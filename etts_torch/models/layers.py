@@ -64,6 +64,18 @@ def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
+def _product(fn, x, w, *args):
+    """``fn(x, w, *args)`` of bf16 operands as flax computes it: the exact
+    products summed in float32 and rounded once to bf16, forward and
+    backward. On the CPU the operands go through float32 explicitly:
+    oneDNN's own bf16 kernels sum in an order and at a precision that
+    depend on the host's instruction set (AMX, AVX512-BF16 or AVX2) and
+    its thread count. A card's bf16 kernels sum in float32 already."""
+    if x.device.type != "cpu":
+        return fn(x, w, *args)
+    return fn(x.float(), w.float(), *args).to(x.dtype)
+
+
 class Dense(Compute, nn.Linear):
     """flax ``Dense``: at bf16 the input, kernel and bias are cast, the
     product rounds once, and the bias is added to it in bf16 (one more
@@ -73,7 +85,7 @@ class Dense(Compute, nn.Linear):
         if not self.low_precision:
             return super().forward(x)
         d = self.dtype
-        return F.linear(x.to(d), self.weight.to(d)) + self.bias.to(d)
+        return _product(F.linear, x.to(d), self.weight.to(d)) + self.bias.to(d)
 
 
 class Conv1d(Compute, nn.Conv1d):
@@ -83,8 +95,8 @@ class Conv1d(Compute, nn.Conv1d):
         if not self.low_precision:
             return super().forward(x)
         d = self.dtype
-        return (self._conv_forward(x.to(d), self.weight.to(d), None)
-                + self.bias.to(d)[:, None])
+        return (_product(self._conv_forward, x.to(d), self.weight.to(d),
+                         None) + self.bias.to(d)[:, None])
 
 
 class Conv2d(Compute, nn.Conv2d):
@@ -94,8 +106,8 @@ class Conv2d(Compute, nn.Conv2d):
         if not self.low_precision:
             return super().forward(x)
         d = self.dtype
-        return (self._conv_forward(x.to(d), self.weight.to(d), None)
-                + self.bias.to(d)[:, None, None])
+        return (_product(self._conv_forward, x.to(d), self.weight.to(d),
+                         None) + self.bias.to(d)[:, None, None])
 
 
 class Embedding(Compute, nn.Embedding):

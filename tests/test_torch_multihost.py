@@ -8,24 +8,28 @@ gloo ranks against one process on the same global batch.
     both ranks continue alike from it.
   - One AR step at test width with the GST reference encoder's and the
     postnet's BatchNorm, dropout, prenet dropout and HeadDrop, with the
-    MINE zoo updated on the step's embeddings, and with the zoo's estimate
-    in the tape (``mine_adversarial``): every gradient after the
-    all-reduce, every moved BatchNorm statistic and the gradients of the
-    zoo's update within 1e-5 of the tensor's largest magnitude of one process's
-    (``tests/torch_dp_ranks.py``), plus 1e-7 for the gradients that are
-    zero in exact arithmetic (the attention's key biases under the
-    softmax, conv biases before a BatchNorm on batch statistics), whose
-    float32 rounding noise is 1e-10 to 1e-9 on either side.
-  - One WaveRNN step in float64 (BatchNorm in its upsample network; its
-    float32 gradients carry rounding noise past the bar) and one
+    MINE zoo updated on the step's embeddings (float32), and with the
+    zoo's estimate in the tape (``mine_adversarial``, float64): every
+    gradient after the all-reduce, every moved BatchNorm statistic and the
+    gradients of the zoo's update within 1e-5 of the tensor's largest
+    magnitude of one process's (``tests/torch_dp_ranks.py``), plus 1e-7
+    for the gradients that are zero in exact arithmetic (the attention's
+    key biases under the softmax, conv biases before a BatchNorm on batch
+    statistics). In float32 such a zero is rounding noise of the size of
+    the terms that cancel: 1e-10 to 1e-9 for the key biases, but one ulp
+    of 1.0 (2.4e-7) for the MINE critic's output bias, whose gradient is
+    1 - 1 (``torch_dp_ranks.DTYPES``).
+  - One WaveRNN step (BatchNorm in its upsample network) and one
     GST-Tacotron step (BatchNorm, the prenets' and zoneout's uniforms,
-    global-norm clipping) at the same bars.
+    global-norm clipping), both in float64, at the same bars: their
+    float32 gradients carry rounding noise past the bar.
   - ``generate_batch_sharded`` on 2 ranks with peaky RAW weights against
     etts' ``generate_batch_sharded`` on its 8-device CPU mesh (scan path).
   - ``train_autoregressive`` (dropout and the MINE zoo),
     ``train_wavernn`` and ``train_tacotron`` with ``--multihost`` on 2
-    ranks against one process: the logged losses within 1e-5 relative,
-    the zoo's MI estimates within 1e-5; rank 0 alone logs and saves.
+    ranks against one process, which runs at the ranks' one thread: the
+    logged losses within 1e-5 relative, the zoo's MI estimates within
+    1e-5; rank 0 alone logs and saves.
 
 Every rank is a process of its own with a timeout and a free port, so
 that no process group lives in the test process."""
@@ -206,7 +210,14 @@ def test_driver_two_ranks_equal_one_process(ranks, kind):
     from etts_torch.utils.logging import read_scalars
     _, work, _, _ = ranks
     module = importlib.import_module(f"etts_torch.{dp.DRIVERS[kind]}")
-    module.main(dp.driver_argv(work, kind) + ["--session_name", "one"])
+    # at the ranks' thread count (``_env``): the CPU kernels' summation
+    # order follows the threads
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        module.main(dp.driver_argv(work, kind) + ["--session_name", "one"])
+    finally:
+        torch.set_num_threads(threads)
     model_kind = {"ar": "autoregressive", "voc": "wavernn",
                   "taco": "tacotron"}[kind]
     one, two = (ConfigManager(work / f"{kind}_ws", model_kind, s)
