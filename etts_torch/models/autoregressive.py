@@ -15,6 +15,7 @@ are the plain float32 projection of the encoder output, as etts'
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from ..ops.masking import (encoder_padding_mask, look_ahead_mask,
                            mel_padding_mask)
+from ..parallel import collectives
 from .layers import (Compute, CrossAttentionBlocks, Dense, DecoderPrenet,
                      Embedding, Postnet, ProsodyStatEncoder,
                      ReferenceEncoderGST, SelfAttentionBlocks,
@@ -157,21 +159,45 @@ class AutoregressiveTransformer(Compute, nn.Module):
 
     def decode(self, encoder_output, targets, encoder_padding_mask_,
                train: bool = False, drop_n_heads: int = 0, r: int = 1,
-               prenet_dropout: float = 0.5, generator=None):
+               prenet_dropout: float = 0.5, generator=None,
+               seq_frames: Optional[int] = None):
         """Teacher-forced decode of the r-strided decoder input ``targets``
         (b, T, mel) (`autoregressive.py:181-198`): the prenet, the decoder
         stack under the look-ahead and padding masks combined, FinalProj's
-        first r * mel columns reshaped to T * r frames, the postnet."""
-        mask = torch.maximum(mel_padding_mask(targets),
-                             look_ahead_mask(targets.shape[1], targets.device))
-        x = self.DecoderPrenet(targets, prenet_dropout, generator)
-        x, attn = self.Decoder(x, encoder_output, mask,
-                               encoder_padding_mask_, r, train, drop_n_heads,
-                               generator)
-        mel = self.FinalProj(x)[:, :, :r * self.mel_channels]
+        first r * mel columns reshaped to T * r frames, the postnet.
+
+        ``seq_frames``: in a sequence-parallel step, T, of which
+        ``targets`` holds this rank's frames (``collectives.SeqShard``).
+        The prenet, the positions, the queries, the FFNs, the norms and
+        FinalProj run on those frames (the decoder in a
+        ``collectives.time_region``); the self-attention's keys and values,
+        the conv blocks and the postnet read the whole sequence, gathered;
+        every output holds this rank's frames."""
+        seq = collectives.seq_shard() if seq_frames is not None else None
+        if seq is None:
+            keys, start, stop, total = targets, 0, targets.shape[1], None
+        else:
+            total = seq_frames
+            start, stop = seq.bounds(total)
+            keys = seq.gather(targets.detach(), total)
+        mask = torch.maximum(
+            mel_padding_mask(keys),
+            look_ahead_mask(keys.shape[1], targets.device)[start:stop])
+        with (collectives.time_region(start, stop, total) if seq is not None
+              else contextlib.nullcontext()):
+            x = self.DecoderPrenet(targets, prenet_dropout, generator)
+            x, attn = self.Decoder(x, encoder_output, mask,
+                                   encoder_padding_mask_, r, train,
+                                   drop_n_heads, generator)
+            mel = self.FinalProj(x)[:, :, :r * self.mel_channels]
         b, t = mel.shape[:2]
         mel = mel.reshape(b, t * r, self.mel_channels)
-        out = self.Postnet(mel, train)
+        if seq is None:
+            out = self.Postnet(mel, train)
+        else:
+            out = {k: seq.local(v, total, per_frame=r) for k, v in
+                   self.Postnet(seq.gather(mel, total, per_frame=r),
+                                train).items()}
         out.update({"decoder_attention": attn, "decoder_output": x,
                     "linear": mel})
         return out
@@ -181,21 +207,25 @@ class AutoregressiveTransformer(Compute, nn.Module):
                 train_style_encoder: bool = False,
                 train_decoder: bool = False, r: int = 1,
                 prenet_dropout: float = 0.5, drop_n_heads: int = 0,
-                style_targets=None, generator=None):
+                style_targets=None, generator=None,
+                seq_frames: Optional[int] = None):
         """Teacher-forced forward (`autoregressive.py:233-259`): ``encode``
         (the style encoders read ``style_targets`` where given, else
         ``targets``), then ``decode``. Returns etts' dict: mel_linear,
         final_output, stop_prob, decoder_attention, decoder_output,
         linear, text_encoder_attention, gst_encoder_attention, gst_tokens,
         gst_output, text_enc_output. Every draw (dropout, HeadDrop, the
-        prenet's) comes from ``generator``."""
+        prenet's) comes from ``generator``. ``seq_frames``: ``decode``'s
+        (sequence parallelism; the style encoders then need the whole
+        sequence as ``style_targets``)."""
         (enc, cross_mask, text_attn, gst_attn, gst_tokens, gst_out,
          text_enc) = self.encode(
             inputs, targets if style_targets is None else style_targets,
             spk_embed, train_text_encoder, train_style_encoder, drop_n_heads,
             generator)
         out = self.decode(enc, targets, cross_mask, train_decoder,
-                          drop_n_heads, r, prenet_dropout, generator)
+                          drop_n_heads, r, prenet_dropout, generator,
+                          seq_frames)
         out.update({"text_encoder_attention": text_attn,
                     "gst_encoder_attention": gst_attn,
                     "gst_tokens": gst_tokens, "gst_output": gst_out,

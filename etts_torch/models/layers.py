@@ -79,13 +79,22 @@ def _product(fn, x, w, *args):
 class Dense(Compute, nn.Linear):
     """flax ``Dense``: at bf16 the input, kernel and bias are cast, the
     product rounds once, and the bias is added to it in bf16 (one more
-    rounding, where ``F.linear`` would fuse it)."""
+    rounding, where ``F.linear`` would fuse it). Under tensor parallelism
+    ``tp`` (a ``parallel.tp.Shard``) holds its place and runs the
+    collectives around the product."""
+    tp = None
 
     def forward(self, x):
+        if self.tp is not None:
+            return self.tp.dense(self, x, self._affine)
+        return self._affine(x, self.weight, self.bias)
+
+    def _affine(self, x, weight, bias):
         if not self.low_precision:
-            return super().forward(x)
+            return F.linear(x, weight, bias)
         d = self.dtype
-        return _product(F.linear, x.to(d), self.weight.to(d)) + self.bias.to(d)
+        y = _product(F.linear, x.to(d), weight.to(d))
+        return y if bias is None else y + bias.to(d)
 
 
 class Conv1d(Compute, nn.Conv1d):
@@ -111,10 +120,13 @@ class Conv2d(Compute, nn.Conv2d):
 
 
 class Embedding(Compute, nn.Embedding):
-    """flax ``Embed``: the table's rows in the compute dtype."""
+    """flax ``Embed``: the table's rows in the compute dtype; a
+    vocabulary-sharded table (``tp``) sums its ranks' rows."""
+    tp = None
 
     def forward(self, ids):
-        x = super().forward(ids)
+        x = (super().forward(ids) if self.tp is None
+             else self.tp.embed(self.weight, ids))
         return x.to(self.dtype) if self.low_precision else x
 
 
@@ -158,14 +170,16 @@ def dropout(x, rate: float, train: bool, generator=None):
     return variable_rate_dropout(x, rate, generator)
 
 
-def head_drop(x, drop_n: int, scores):
+def head_drop(x, drop_n: int, scores, first: int = 0):
     """Zero exactly ``drop_n`` heads per batch row and rescale the rest by
     h / (h - drop_n) (`layers.py:122-133`): x (b, h, t, depth); ``scores``
-    (b, h), uniform draws, drop the heads of the ``drop_n`` lowest."""
-    h = x.shape[1]
+    (b, h), uniform draws, drop the heads of the ``drop_n`` lowest. Under
+    tensor parallelism x holds heads ``first`` onward of the h that
+    ``scores`` rank."""
+    h = scores.shape[1]
     if h == 1:
         return x
-    ranks = scores.argsort(-1).argsort(-1)
+    ranks = scores.argsort(-1).argsort(-1)[:, first:first + x.shape[1]]
     keep = (ranks >= drop_n).to(x.dtype)[:, :, None, None]
     scale = h / max(h - drop_n, 1)
     if x.dtype == torch.bfloat16:   # etts rounds the scale to x's dtype
@@ -221,6 +235,17 @@ def _global_batch_norm(bn, x, momentum: float):
     if bn.weight is not None:
         y = y * bn.weight.view(shape) + bn.bias.view(shape)
     return y
+
+
+def whole_time(x):
+    """In a ``collectives.time_region`` (the decoder of a
+    sequence-parallel step, x (b, t, d) this rank's frames), the whole
+    sequence gathered from the seq axis, its gradient reaching every
+    rank's frames; x itself elsewhere."""
+    region = collectives.in_time_region()
+    if region is None:
+        return x
+    return collectives.seq_shard().gather(x, region[2])
 
 
 class _RenormSoftmax(torch.autograd.Function):
@@ -294,9 +319,16 @@ class MultiHeadAttention(nn.Module):
         self.wv = Dense(kv_dim, model_dim)
         self.dense = Dense(q_dim + model_dim, model_dim)
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank computes: all, or its share under tensor
+        parallelism (``wq`` column-sharded)."""
+        tp = self.wq.tp
+        return self.num_heads if tp is None else self.num_heads // tp.size
+
     def split(self, x):
         b, t, _ = x.shape
-        return x.view(b, t, self.num_heads, -1).transpose(1, 2)
+        return x.view(b, t, self.local_heads, -1).transpose(1, 2)
 
     def forward(self, v, k, q_in, mask=None, kv=None, cache=None,
                 cache_index=None, train=False, drop_n_heads=0,
@@ -318,10 +350,14 @@ class MultiHeadAttention(nn.Module):
             v = cache["v"][:, :, :cache_index + 1]
         out, w = attention(q, k, v, mask)
         b, h, tq, _ = out.shape
+        tp = self.wq.tp
         if train and drop_n_heads:
             out = head_drop(out, drop_n_heads, collectives.rand(
-                (b, h), generator, out.device))
-        concat = out.transpose(1, 2).reshape(b, tq, self.model_dim)
+                (b, self.num_heads), generator, out.device),
+                0 if tp is None else tp.rank * h)
+        concat = out.transpose(1, 2).reshape(b, tq, -1)
+        if tp is not None:
+            concat = tp.gather(concat)
         return self.dense(torch.cat([q_in, concat], -1)), w
 
 
@@ -356,8 +392,12 @@ class SelfAttentionResNorm(nn.Module):
 
     def forward(self, x, mask, cache=None, cache_index=None, train=False,
                 drop_n_heads=0, generator=None):
-        """-> (output, attention weights (b, h, tq, tk))."""
-        attn, w = self.mha(x, x, x, mask, cache=cache, cache_index=cache_index,
+        """-> (output, attention weights (b, h, tq, tk)). In a time region
+        the queries are this rank's frames, the keys and values the whole
+        sequence's."""
+        kv = whole_time(x)
+        attn, w = self.mha(kv, kv, x, mask, cache=cache,
+                           cache_index=cache_index,
                            train=train, drop_n_heads=drop_n_heads,
                            generator=generator)
         out = dropout(self.ln(attn), self.dropout_rate, train, generator)
@@ -544,12 +584,16 @@ class CrossAttentionBlocks(nn.Module):
                 drop_n_heads=0, generator=None):
         """Teacher-forced stack over x (b, T, d) (`layers.py:436-468`): the
         positional encoding ``pe[::r][:T]``, dropout, each block under
-        ``self_mask`` (look-ahead and padding combined). Returns (x,
+        ``self_mask`` (look-ahead and padding combined); in a time region x
+        holds frames [start, stop) and reads ``pe[::r][start:stop]``, and
+        ``self_mask`` those frames' rows. Returns (x,
         {"Decoder_DenseBlock{i}_CrossAttention" or
         "Decoder_ConvBlock{j}_CrossAttention": each block's cross-attention
         (b, h, T, n_enc)}), numbered from 1, etts' keys."""
-        x = scaled_positions(x, self.pos_encoding[:x.shape[1] * r:r],
-                             self.model_dim)
+        region = collectives.in_time_region()
+        o = 0 if region is None else region[0]
+        pe = self.pos_encoding[o * r:(o + x.shape[1]) * r:r]
+        x = scaled_positions(x, pe, self.model_dim)
         x = dropout(x, self.dropout_rate, train, generator)
         weights = {}
         for i, block in enumerate(self.blocks()):
@@ -630,6 +674,16 @@ class CNNResNorm(nn.Module):
         return batch_norm(norm, x, train)
 
     def forward(self, inputs, train=False):
+        """In a time region (inputs this rank's frames) the stack runs on
+        the whole sequence, its convs' halos and BatchNorm statistics the
+        sequence's, and returns this rank's frames."""
+        region = collectives.in_time_region()
+        if region is not None:
+            start, stop, _ = region
+            return self._stack(whole_time(inputs), train)[:, start:stop]
+        return self._stack(inputs, train)
+
+    def _stack(self, inputs, train):
         x = inputs.transpose(1, 2)
         for i in range(self.n_layers - 1):
             x = getattr(self, f"conv_{i}")(F.pad(x, self.pad))

@@ -415,8 +415,7 @@ class Tacotron(nn.Module):
         rnn_depth), drawn after the others. In a data-parallel step b is
         the rank's rows, and each draw is their part of the global batch's
         (``parallel.collectives``)."""
-        rank, world = (collectives.rank_world() if collectives.sharded()
-                       else (0, 1))
+        rank, world = collectives.rows()
         p, steps = sum(self.prenet_depths), max_iters or self.max_iters
         g = b * world
         shapes = {"encoder_prenet": (g, n, p),

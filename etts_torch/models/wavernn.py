@@ -26,7 +26,7 @@ from ..ops.kernels.wavernn_cell import (Int8SampleLoopWeights,
 from ..ops.normalizers import mu_law_decode
 from ..parallel.collectives import gather_rows, rank_world
 from ..utils.seeds import fold_in
-from .layers import batch_norm
+from .layers import Dense, batch_norm
 
 BN_EPS = 1e-5          # flax BatchNorm default
 BN_MOMENTUM = 0.9      # etts' BatchNorm(momentum=0.9), `wavernn.py:119`
@@ -174,15 +174,15 @@ class WaveRNN(nn.Module):
         self.upsample = UpsampleNetwork(upsample_factors, res_blocks,
                                         feat_dims, compute_dims,
                                         res_out_dims, pad)
-        self.I = nn.Linear(feat_dims + a + 1, d)
+        self.I = Dense(feat_dims + a + 1, d)
         for name, n_in in (("rnn1", d), ("rnn2", d + a)):
             setattr(self, f"{name}_wi", nn.Parameter(torch.zeros(n_in, 3 * d)))
             setattr(self, f"{name}_wh", nn.Parameter(torch.zeros(d, 3 * d)))
             setattr(self, f"{name}_bi", nn.Parameter(torch.zeros(3 * d)))
             setattr(self, f"{name}_bh", nn.Parameter(torch.zeros(3 * d)))
-        self.fc1 = nn.Linear(d + a, fc_dims)
-        self.fc2 = nn.Linear(fc_dims + a, fc_dims)
-        self.fc3 = nn.Linear(fc_dims, self.n_classes)
+        self.fc1 = Dense(d + a, fc_dims)
+        self.fc2 = Dense(fc_dims + a, fc_dims)
+        self.fc3 = Dense(fc_dims, self.n_classes)
 
     def _aux_split(self, aux):
         a = self.aux_dims

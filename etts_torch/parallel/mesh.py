@@ -158,9 +158,13 @@ def make_mesh(axis_names: Sequence[str] = ("data",),
               device_type: str = "cpu"):
     """A ``DeviceMesh`` over every rank of the process group, the axes
     named ``axis_names`` with ``axis_sizes`` (one axis: all ranks; a -1
-    takes what the others leave). A multi-axis mesh needs its sizes, and
-    sizes whose product is not the world size raise, as etts' reshape
-    does."""
+    takes what the others leave), in rank order, the last axis fastest:
+    ("data", "model") and ("data", "seq") are the train steps' (a tensor-
+    or sequence-parallel group of neighbouring ranks on each data index).
+    Each axis has its process group, ``mesh.get_group(axis)``, of the
+    world's backend. A multi-axis mesh needs its sizes, and sizes that do
+    not make the world size raise, as etts' reshape does.
+    ``device_type``: "cuda" for NCCL groups."""
     from torch.distributed.device_mesh import init_device_mesh
     n = rank_world()[1]
     if axis_sizes is None:
@@ -170,6 +174,9 @@ def make_mesh(axis_names: Sequence[str] = ("data",),
     sizes = list(axis_sizes)
     if -1 in sizes:
         known = int(np.prod([s for s in sizes if s != -1]))
+        if n % known:
+            raise ValueError(f"mesh sizes {tuple(sizes)} do not divide the "
+                             f"{n} ranks of the process group")
         sizes[sizes.index(-1)] = n // known
     if int(np.prod(sizes)) != n:
         raise ValueError(f"mesh sizes {tuple(sizes)} do not make the {n} "
@@ -232,13 +239,26 @@ def local_batch_slice(global_batch_size: int) -> slice:
     return slice(per * rank, per * (rank + 1))
 
 
-def local_shard(batch):
+def local_shard(batch, mesh=None):
     """A global batch (a tuple, list or dict of arrays or tensors, or one)
-    cut down to this rank's rows; the batch itself in a single process.
-    Every rank runs the same seeded data stream and keeps its slice."""
-    if rank_world()[1] == 1:
+    cut down to this rank's rows (of ``mesh``'s data axis where given:
+    the ranks of a model or seq axis keep the same rows); the batch itself
+    in a single process. Every rank runs the same seeded data stream and
+    keeps its slice."""
+    if mesh is not None:
+        rank, world = mesh.get_local_rank("data"), mesh.size(0)
+    else:
+        rank, world = rank_world()
+    if world == 1:
         return batch
-    return _tree_map(lambda x: x[local_batch_slice(len(x))], batch)
+
+    def rows(x):
+        if len(x) % world:
+            raise ValueError(f"a global batch of {len(x)} rows does not "
+                             f"split over {world} ranks")
+        per = len(x) // world
+        return x[per * rank:per * (rank + 1)]
+    return _tree_map(rows, batch)
 
 
 def _tree_map(fn, tree):

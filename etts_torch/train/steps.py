@@ -29,6 +29,7 @@ uninterrupted one draws.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -92,13 +93,15 @@ def _forward_metrics(loss, vals) -> dict:
             "duration_loss": vals[1].detach()}
 
 
-def make_forward_train_step(model, max_frames: int):
+def make_forward_train_step(model, max_frames: int, mesh=None):
     """``step(state, batch, rng) -> metrics``, one Adam update of ``state``
     (a ``TrainState`` of the forward ``model``) on ``batch`` (mel,
     phonemes, durations) on the model's device, dropout drawn from
     ``generator(rng)`` (`etts/train/steps.py:50-86`). Metrics: {"loss",
-    "mel_loss", "duration_loss"}."""
-    @collectives.sharded_step
+    "mel_loss", "duration_loss"}. ``mesh``: a ("data", "model") mesh of a
+    tensor-parallel ``model`` (``parallel.tp``), the batch the rank's rows
+    of the data axis."""
+    @functools.partial(collectives.sharded_step, mesh=mesh)
     def step(state, batch, rng: int):
         _, loss, vals = _forward_losses(model, batch, max_frames, True,
                                         generator(rng, batch[0].device))
@@ -141,7 +144,7 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
                                    train_decoder: bool = True,
                                    adversarial_mine=None,
                                    scheduled_sampling: bool = False,
-                                   gta_inputs: bool = False):
+                                   gta_inputs: bool = False, mesh=None):
     """``step(state, batch, mi_loss, rng, *, r, prenet_dropout=0.5,
     drop_n_heads=0, ss_rate=0.0) -> (metrics, aux)``, one Adam update of
     ``state`` (a ``TrainState`` of ``model``).
@@ -159,10 +162,22 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
     "style_loss", "mi_live", "losses": {"output", "stop_prob",
     "mel_linear"}}; aux: text_enc_output, gst_output (detached; the global
     batch's rows, which the zoo reads), decoder_attention, reduced_target,
-    final_output (the rank's rows)."""
+    final_output (the rank's rows).
+
+    ``mesh``: a ("data", "model") mesh of a tensor-parallel ``model``
+    (``parallel.tp``), or a ("data", "seq") mesh: sequence parallelism,
+    etts' ``seq_sharding`` P('data', 'seq', None) on the teacher-forcing
+    mel, ``tar_real`` and ``tar_mel``. Each seq rank keeps its frames of
+    those (``collectives.SeqShard``: ceil(T / N) r-strided frames a rank)
+    and decodes them (``model.decode``'s ``seq_frames``); the style
+    encoder reads the whole ``tar_mel``, gathered; each rank's loss is its
+    frames' mean weighted by its share of the frames, and the gradients
+    and metrics average over every rank, so that the step's numbers are
+    the replicated step's. aux's decoder_attention, reduced_target and
+    final_output then hold the rank's frames."""
     loss_fns = _loss_fns(stop_scaling)
 
-    @collectives.sharded_step
+    @functools.partial(collectives.sharded_step, mesh=mesh)
     def step(state, batch, mi_loss, rng: int, *, r: int,
              prenet_dropout: float = 0.5, drop_n_heads: int = 0,
              ss_rate: float = 0.0):
@@ -171,7 +186,19 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
         spk_in = spk[:, None] if model.has_speaker else None
         tar_real, tar_mel, tar_stop, mel_len = model.input_reshape(mel, stop,
                                                                    r)
-        dec_inp, style_tar = tar_mel, None
+        seq = collectives.seq_shard()
+        frames = None if seq is None else tar_mel.shape[1]
+
+        def local(x, per_frame=1):
+            """x's frames on this seq rank (x itself without a seq axis)."""
+            return x if seq is None else seq.local(x, frames, 1, per_frame)
+        if seq is not None:
+            # the rank keeps its frames; the style encoder reads the whole
+            # sequence, gathered
+            tar_real, tar_stop = local(tar_real, r), local(tar_stop, r)
+            tar_mel = seq.gather(local(tar_mel), frames)
+        full_len, mel_len = mel_len, tar_real.shape[1]
+        dec_inp, style_tar = tar_mel, None if seq is None else tar_mel
         if gta_inputs:
             _, gta_tar, _, _ = model.input_reshape(batch[4], stop, r)
             dec_inp = torch.cat([tar_mel[:, :1], gta_tar[:, 1:]], 1)
@@ -179,29 +206,42 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
         if scheduled_sampling:
             ss_rng = fold_in(rng, 13)
             with torch.no_grad():
-                out1 = model(phonemes, tar_mel, spk_in, False, False, False,
-                             r=r, prenet_dropout=prenet_dropout,
-                             generator=generator(ss_rng, dev))
+                out1 = model(phonemes, local(tar_mel), spk_in, False, False,
+                             False, r=r, prenet_dropout=prenet_dropout,
+                             style_targets=style_tar,
+                             generator=generator(ss_rng, dev),
+                             seq_frames=frames)
+                pred1 = out1["final_output"]
+                if seq is not None:
+                    pred1 = seq.gather(pred1, frames, per_frame=r)
             # final_output[:, t] predicts mel[:, t + 1]: prepend the GO
             # frame and shift + r-stride as the targets are
-            pred = torch.cat([mel[:, :1], out1["final_output"][:, :mel_len]],
+            pred = torch.cat([mel[:, :1], pred1[:, :full_len]],
                              1)[:, :-1][:, 0::r]
             mix = collectives.rand(
                 (tar_mel.shape[0], tar_mel.shape[1], 1),
                 generator(fold_in(ss_rng, 1), dev), dev) < ss_rate
             dec_inp = torch.where(mix, pred, tar_mel)
             style_tar = tar_mel
-        out = model(phonemes, dec_inp, spk_in, train_text_encoder,
+        out = model(phonemes, local(dec_inp), spk_in, train_text_encoder,
                     train_style_encoder, train_decoder, r=r,
                     prenet_dropout=prenet_dropout, drop_n_heads=drop_n_heads,
-                    style_targets=style_tar, generator=generator(rng, dev))
+                    style_targets=style_tar, generator=generator(rng, dev),
+                    seq_frames=frames)
         tts_loss, vals = _tts_losses(out, tar_real, tar_stop, mel_len,
                                      loss_fns)
+        if seq is not None:
+            # this rank's share of the whole sequence's means
+            share = mel_len * seq.size / full_len
+            tts_loss, vals = tts_loss * share, [v * share for v in vals]
         style_loss = tts_loss.new_zeros(())
         if use_style_loss and model.has_style:
+            final = out["final_output"]
+            if seq is not None:
+                final = seq.gather(final, frames, per_frame=r)[:, :full_len]
             with frozen_batch_stats(model):
                 gst2 = model.encode_style(
-                    out["final_output"], train_style_encoder, drop_n_heads,
+                    final, train_style_encoder, drop_n_heads,
                     generator(fold_in(rng, 7), dev))[0]
             style_loss = l2_loss(gst2, out["gst_output"])
         tts_total = tts_loss + style_loss
@@ -239,7 +279,7 @@ def make_autoregressive_train_step(model, *, stop_scaling: float = 8.0,
         aux = {"text_enc_output": detach(text), "gst_output": detach(gst),
                "decoder_attention": {k: v.detach() for k, v in
                                      out["decoder_attention"].items()},
-               "reduced_target": tar_mel,
+               "reduced_target": local(tar_mel),
                "final_output": out["final_output"].detach()}
         return metrics, aux
 
@@ -318,15 +358,16 @@ def make_mine_zoo_update(nets):
     return step
 
 
-def make_wavernn_train_step(model):
+def make_wavernn_train_step(model, mesh=None):
     """``step(state, batch) -> {"loss"}``, one Adam update of ``state`` (a
     ``TrainState`` of the WaveRNN ``model``) on ``batch`` (x, y, mels) as
     ``data.dataset.collate_vocoder`` makes it, on the model's device
     (`etts/train/steps.py:385-414`): the teacher-forced forward in train
     mode, whose BatchNorm moves its running statistics, then the
     discretized-MoL loss (MOL, y floats) or the cross-entropy (RAW, y
-    int64 labels). No randomness: the step takes no seed."""
-    @collectives.sharded_step
+    int64 labels). No randomness: the step takes no seed. ``mesh``: a
+    ("data", "model") mesh of a tensor-parallel ``model``."""
+    @functools.partial(collectives.sharded_step, mesh=mesh)
     def step(state, batch):
         x, y, mels = batch
         logits = model(x, mels, train=True)

@@ -44,9 +44,11 @@ global batch of ``tts_batch_size``, the step being the global batch's
 over the ranks), and the MINE zoo updates on the global batch on every
 rank (with ``mine_sep_call``, on its own whole batch). Rank 0 alone
 prints, logs, predicts and writes checkpoints, which every rank then
-restores from. ``sequence_parallel: N`` (context parallelism over a
-``seq`` axis) is not ported: with N ranks or more it raises, with fewer
-the run is data-parallel, as etts falls back.
+restores from. ``sequence_parallel: N`` with N ranks or more (their count
+a multiple of N) runs on a ("data", "seq") mesh: each group of N
+neighbouring ranks shares rows of the global batch and splits their
+teacher-forcing frames N ways (``train.steps``); with fewer ranks the run
+is data-parallel, as etts falls back. The driver prints which ran.
 """
 from __future__ import annotations
 
@@ -64,8 +66,8 @@ from .models.init import init_flax
 from .models.mine import CLUB, MINE, MIState
 from .ops.audio import AudioProcessor
 from .parallel import (add_multihost_args, barrier, is_primary,
-                       local_device, local_shard, maybe_init_multihost,
-                       rank_world, replicate)
+                       local_device, local_shard, make_mesh,
+                       maybe_init_multihost, rank_world, replicate)
 from .text import default_tokenizer
 from .train.state import FROZEN_PRETRAINED, TrainState
 from .train.steps import (fold_in, frozen_batch_stats, generator,
@@ -152,17 +154,28 @@ def main(argv=None):
 
     cm = ConfigManager(args.config, "autoregressive", args.session_name)
     config = cm.config
+    # context parallelism over a 'seq' axis (sequence_parallel: N, the
+    # teacher-forcing mel's frames split N ways) where N ranks or more
+    # take part; with fewer the run is data-parallel, as etts falls back
     seq_n, world = int(config.get("sequence_parallel", 1)), rank_world()[1]
+    mesh = None
     if seq_n > 1 and world >= seq_n:
-        raise NotImplementedError(
-            f"sequence_parallel: {seq_n} over {world} ranks: context "
-            "parallelism over a 'seq' axis is not ported yet (ROADMAP "
-            "Queue A 7, tensor and sequence parallelism)")
+        mesh = make_mesh(("data", "seq"), (-1, seq_n),
+                         device_type=("cuda" if torch.distributed
+                                      .get_backend() == "nccl" else "cpu"))
+        layout = (f"sequence parallelism: data {world // seq_n} x seq "
+                  f"{seq_n}")
+    elif world > 1:
+        layout = f"data parallelism over {world} ranks"
+    else:
+        layout = "one process"
+    if seq_n > 1 and world < seq_n:
+        layout += (f" (sequence_parallel: {seq_n} needs {seq_n} ranks; "
+                   f"{world} here)")
     if primary:
         cm.create_remove_dirs(clear_dir=args.reset_dir, force=args.force)
         cm.dump_config()
-        print(f"session {cm.session_name} in {cm.base_dir}"
-              + (f", {world} ranks" if world > 1 else ""))
+        print(f"session {cm.session_name} in {cm.base_dir}, {layout}")
     barrier()
     tokenizer = default_tokenizer(add_start_end=True)
     model = build_tts(config, tokenizer.vocab_size)
@@ -238,7 +251,8 @@ def main(argv=None):
         train_style_encoder=config.get("train_style_encoder", True),
         train_decoder=config.get("train_decoder", True),
         adversarial_mine=mine_nets if adversarial else None,
-        scheduled_sampling=ss_enabled, gta_inputs=bool(args.gta_mel_dir))
+        scheduled_sampling=ss_enabled, gta_inputs=bool(args.gta_mel_dir),
+        mesh=mesh)
 
     log = ScalarLog(cm.log_dir)
     avg_windows = {n: ValueWindow(n)
@@ -263,7 +277,7 @@ def main(argv=None):
     try:
         for step in range(start_step, max_steps):
             global_batch = loader.next_batch()
-            host_batch = local_shard(global_batch)
+            host_batch = local_shard(global_batch, mesh)
             batch = to_device(host_batch, device)
             rng = fold_in(SEED, step)
             r = step_schedule(step, config["reduction_factor_schedule"])
