@@ -167,7 +167,16 @@ Phases (any failure exits non-zero and prints no result line):
      the one rank of an NCCL group run here; each first step's loss
      within DP_LOSS_TOL of the plain driver's, the float64 step the
      control; one checkpoint a run; the step times of 1 and 2 ranks (two
-     ranks on one card: no speed-up is claimed).
+     ranks on one card: no speed-up is claimed). Then, on the same ranks,
+     tensor and sequence parallelism: the forward, AR and WaveRNN train
+     steps at configs/default's full width on a (data 1, model 2) mesh
+     (``tp_rank_cases``) against the whole model's step here in float64
+     (``tp_case``, ``tp_held``: every gradient, BatchNorm statistic and
+     updated parameter), float32 printed; B1 once a rank from the gathered
+     WaveRNN (``generate``), the kernel held one step at a time on its
+     weights (``tp_b1_check``); ``train_autoregressive`` with
+     ``sequence_parallel: 2`` for DP_STEPS steps, its first loss within
+     DP_LOSS_TOL of the plain driver's (``tp_phase_checks``).
 
 Phases 13 and 15 run in a process of their own (``--side``) beside phase
 12; their lines are printed when it ends.
@@ -175,8 +184,10 @@ Phases 13 and 15 run in a process of their own (``--side``) beside phase
 ``python3 chip_smoke.py --nccl-cards``, on a host of two cards or more and
 not part of the one-card run, holds data parallelism across the cards:
 the worker on one card and on one NCCL rank a card, its checkpoint case,
-and ``train_autoregressive`` under torchrun against the plain driver
-(``nccl_cards_main``).
+and ``train_autoregressive`` under torchrun against the plain driver; the
+forward step tensor-parallel on a (data N / 2, model 2) mesh of NCCL ranks
+(``--tp-rank``) against one card in float64, and the driver with
+``sequence_parallel: 2`` under torchrun (``nccl_cards_main``).
 
 The port computes in float32 without TF32 (``utils/precision.py``), as
 every entry point sets it, except where a config asks for ``precision:
@@ -331,7 +342,7 @@ VT_CPU_ROWS = 2
 VT_STEPS = (20, 30)
 VT_CKPT = 10
 VT_GTA_TOL = 1e-5
-VT_GTA_STEPS = 5
+VT_GTA_STEPS = 3
 VT_GTA_BATCH = 16
 VT_DET_STEPS = 10
 # the trained export's one-step check (one_step_check in MOL on the
@@ -376,7 +387,7 @@ TT_CPU_ROWS = 2
 # (the control) past it. Read on an H100 before the bar was set: card
 # 1.23e-3, CPU 3.49e-6, control 1.79e-1
 TT_F32_GRAD = 2e-2
-TT_STEPS = (20, 30)
+TT_STEPS = (10, 20)
 TT_CKPT = 10
 TT_DET_STEPS = (4, 8)
 TT_WORDS = ("the quick brown fox jumps over a lazy dog while birds fly "
@@ -465,9 +476,36 @@ DP_STEPS = 3
 DP_LOSS_TOL = 1e-5
 DP_TIMEOUT = 300
 DP_RANK = "--dp-rank"
+# phase 16, tensor and sequence parallelism on the same two gloo ranks:
+# the forward, AR and WaveRNN train steps at configs/default's full width
+# (heads 4, d 256, FFN 1024; rnn 512, fc 512) on a (data 1, model 2) mesh,
+# on a seeded global batch of TP_B rows (the forward model's TP_FWD_FRAMES
+# frames, cut from its 1280; the AR's TP_AR_FRAMES at r = TP_R; crops of
+# TP_VOC_HOPS hops), dropout, prenet dropout and HeadDrop on. In float64
+# every gradient, BatchNorm statistic and updated parameter is held
+# within TP_GRAD_TOL of the tensor's largest magnitude (plus TP_GRAD_ATOL
+# for the gradients zero in exact arithmetic, whose parameters Adam moves
+# by noise: within the learning rate) of the step in this process on the
+# whole model; float32's distance is printed, not held. Then B1 vocodes a
+# seeded mel from the gathered float32 WaveRNN on each rank (fold
+# TP_FOLD), its kernel held against the plain version as phase 3 holds
+# it; and train_autoregressive runs with sequence_parallel: 2 for
+# DP_STEPS steps, its first loss within DP_LOSS_TOL of the plain
+# driver's.
+TP_B = 4
+TP_FWD_FRAMES = 400
+TP_AR_FRAMES = 201
+TP_R = 10
+TP_VOC_HOPS = 2
+TP_GRAD_TOL = 1e-5
+TP_GRAD_ATOL = 1e-12
+TP_LR = 1e-3
+TP_FOLD = (2000, 100)
+TP_SEED = 5
 # ``chip_smoke.py --nccl-cards``: data parallelism over every card of the
 # host, one NCCL rank a card (not part of the one-card run)
 NCCL_CARDS = "--nccl-cards"
+TP_RANK = "--tp-rank"       # a rank of --nccl-cards' (2, 2) TP step
 
 
 def card() -> str:
@@ -3971,13 +4009,247 @@ def dp_rank_main(rank: int, port: int, out: Path) -> int:
         "phase16_gloo2", "--multihost", "--coordinator_address",
         f"127.0.0.1:{port}", "--num_processes", "2", "--process_id",
         str(rank), "--dist_backend", "gloo"))
+    train_launches = read_launches()
+    tp_res = tp_rank_cases(rank, dev, out)
+    zero_launches()
+    t_sp, sp_text, _ = run_main(train_main, [
+        "--config", str(ROOT / "build" / "phase16_sp"), "--session_name",
+        "phase16_sp2", "--max_steps", str(DP_STEPS), "--multihost",
+        "--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
+        "2", "--process_id", str(rank), "--dist_backend", "gloo"])
     torch.save({"rows": [r.cpu() for r in rows],
                 "wavs": [w.cpu() for w in wavs], "launches": ran,
-                "seconds": secs, "train_launches": read_launches(),
+                "seconds": secs, "train_launches": train_launches,
                 "train_seconds": t_train, "train_out": text,
-                "device": str(dev)}, out / f"rank{rank}.pt")
+                "device": str(dev), "tp": tp_res, "sp_seconds": t_sp,
+                "sp_out": sp_text, "sp_launches": read_launches()},
+               out / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
     return 0
+
+
+def tp_model(kind: str):
+    """configs/default's forward ("fwd"), AR ("ar") or WaveRNN ("voc")
+    model at full width, etts' initialisers seeded TP_SEED, on the CPU."""
+    import torch
+    from etts_torch.models.init import init_flax
+    from etts_torch.text import default_tokenizer
+    from etts_torch.utils.config import (_mine_pair_types, build_forward,
+                                         build_tts, build_vocoder,
+                                         load_config)
+    if kind == "fwd":
+        model = build_forward(load_config(CONFIG, "forward"),
+                              default_tokenizer(False).vocab_size)
+    elif kind == "ar":
+        c = load_config(CONFIG, "autoregressive")
+        c["mine_pair_types"] = _mine_pair_types(c)
+        model = build_tts(c, default_tokenizer(True).vocab_size)
+    else:
+        model = build_vocoder(load_config(CONFIG, "wavernn"))
+    return init_flax(model, torch.Generator().manual_seed(TP_SEED))
+
+
+def tp_batch(kind: str):
+    """The kind's seeded global batch of TP_B rows (numpy): rows of
+    different lengths, zero-padded as the datasets pad them."""
+    import numpy as np
+    rng = np.random.default_rng(TP_SEED)
+    if kind == "fwd":
+        n = 60
+        phon = np.zeros((TP_B, n), np.int64)
+        dur = np.zeros((TP_B, n), np.float32)
+        mel = np.zeros((TP_B, TP_FWD_FRAMES, 80), np.float32)
+        for i, k in enumerate((60, 52, 45, 38)):
+            phon[i, :k] = rng.integers(1, 40, k)
+            dur[i, :k] = rng.integers(2, 9, k)
+            dur[i, :k] *= min(1.0, (TP_FWD_FRAMES - 1) / dur[i].sum())
+            dur[i, :k] = np.floor(dur[i, :k])
+            t = int(dur[i].sum())
+            mel[i, :t] = rng.uniform(-4, 0, (t, 80))
+        return mel, phon, dur
+    if kind == "ar":
+        mel = np.zeros((TP_B, TP_AR_FRAMES, 80), np.float32)
+        stop = np.zeros((TP_B, TP_AR_FRAMES), np.int64)
+        phon = np.zeros((TP_B, 50), np.int64)
+        for i, (f, nl) in enumerate(zip((1.0, 0.85, 0.75, 0.6),
+                                        (50, 44, 38, 30))):
+            tl = int(TP_AR_FRAMES * f)
+            mel[i, :tl] = rng.uniform(-4, 0, (tl, 80))
+            mel[i, 0], mel[i, tl - 1] = 0.5, -0.5
+            stop[i, :tl], stop[i, tl - 1] = 1, 2
+            phon[i, :nl] = rng.integers(1, 40, nl)
+        spk = rng.standard_normal((TP_B, 256)).astype(np.float32)
+        return mel, phon, stop, spk / np.linalg.norm(spk, axis=-1,
+                                                     keepdims=True)
+    hop = 200
+    x = rng.uniform(-1, 1, (TP_B, TP_VOC_HOPS * hop)).astype(np.float32)
+    y = rng.uniform(-1, 1, (TP_B, TP_VOC_HOPS * hop)).astype(np.float32)
+    mels = rng.uniform(0, 1, (TP_B, TP_VOC_HOPS + 4, 80)).astype(np.float32)
+    return x, y, mels
+
+
+def tp_case(kind: str, dtype, dev, mesh=None) -> tuple:
+    """One train step of ``tp_model(kind)`` in ``dtype`` on ``dev`` with
+    its noise on, on the rows of ``tp_batch(kind)`` this rank keeps, the
+    model tensor-parallel over ``mesh``'s model axis where given (the
+    whole model in this process without): ({"loss", "grad/<name>",
+    "param/<name>", "stat/<name>"}, each whole (shards gathered), on the
+    CPU; the model after the step)."""
+    import torch
+    from etts_torch.parallel import local_shard, tp
+    from etts_torch.train.state import TrainState
+    from etts_torch.train.steps import (fold_in, make_autoregressive_train_step,
+                                        make_forward_train_step,
+                                        make_wavernn_train_step)
+    model = tp_model(kind).to(dtype).to(dev)
+
+    class Capture(TrainState):
+        def apply_gradients(self, grads):
+            self.grads = [g.detach().clone() for g in grads]
+            super().apply_gradients(grads)
+    state = Capture(model, [[0, TP_LR]])
+    if mesh is not None:
+        tp.shard_train_state(state, mesh)
+    batch = tuple(torch.from_numpy(x).to(dev) for x in
+                  local_shard(tp_batch(kind), mesh))
+    batch = tuple(x.to(dtype) if x.is_floating_point() else x
+                  for x in batch)
+    rng = fold_in(TP_SEED, 0)
+    if kind == "fwd":
+        metrics = make_forward_train_step(model, TP_FWD_FRAMES, mesh=mesh)(
+            state, batch, rng)
+    elif kind == "ar":
+        metrics, _ = make_autoregressive_train_step(
+            model, stop_scaling=8.0, mesh=mesh)(
+            state, batch, 0.0, rng, r=TP_R, prenet_dropout=0.5,
+            drop_n_heads=1)
+    else:
+        metrics = make_wavernn_train_step(model, mesh=mesh)(state, batch)
+    out = {"loss": float(metrics["loss"])}
+    grads = tp.gather_like(model, state.params, state.grads)
+    out.update({f"grad/{n}": g.cpu() for n, g in zip(state.names, grads)})
+    for n, t in tp.gathered_state_dict(model).items():
+        if n.endswith(("running_mean", "running_var")):
+            out[f"stat/{n}"] = t.cpu()
+        elif not n.endswith("num_batches_tracked"):
+            out[f"param/{n}"] = t.cpu()
+    return out, model
+
+
+def tp_held(got: dict, want: dict) -> tuple:
+    """(the worst ratio of a tensor's distance to its bar, its name, the
+    norm-relative distance of all the gradients together) of ``got``
+    against ``want`` (``tp_case``'s). A gradient or BatchNorm statistic's
+    bar: TP_GRAD_TOL of the tensor's largest magnitude plus TP_GRAD_ATOL.
+    An updated parameter's adds, element by element, what Adam's first
+    update lr * g / (|g| + eps) makes of the two gradients' difference d:
+    its slope is at most eps / (m + eps)^2 between them (m the smaller
+    |g|, 0 where the signs differ), so twice lr * eps * |d| / (m + eps)^2
+    (twice: Adam's own rounding); large where |g| is below eps, as for a
+    gradient zero in exact arithmetic."""
+    import torch
+    worst, name = 0.0, ""
+    gd = gn = 0.0
+    for k, w in want.items():
+        if not k.startswith(("grad/", "param/", "stat/")) or not w.numel():
+            continue
+        w64, g64 = w.double(), got[k].double()
+        bar = TP_GRAD_TOL * float(w64.abs().max()) + TP_GRAD_ATOL
+        err = (g64 - w64).abs()
+        if k.startswith("param/"):
+            gk = "grad/" + k[len("param/"):]
+            if gk in want:
+                ga, gb = want[gk].double(), got[gk].double()
+                m = torch.where(ga * gb > 0, torch.minimum(ga.abs(),
+                                                           gb.abs()), 0.0)
+                bar = bar + 2 * TP_LR * 1e-9 * (ga - gb).abs() / (
+                    m + 1e-9) ** 2
+        ratio = float((err / bar).max())
+        if k.startswith("grad/"):
+            gd += float(err.square().sum())
+            gn += float(w64.square().sum())
+        if ratio > worst:
+            worst, name = ratio, k
+    return worst, name, (gd / max(gn, 1e-300)) ** 0.5
+
+
+def tp_rank_cases(rank: int, dev, out: Path) -> dict:
+    """The TP steps of phase 16 on this rank (float64 and float32), B1 from
+    the gathered float32 WaveRNN; rank 0 writes the steps' results to
+    OUT/tp.pt. Returns {"losses", "b1": {...}, "launches"}."""
+    import torch
+    from etts_torch.models.wavernn import generate
+    from etts_torch.parallel import make_mesh, tp
+    mesh = make_mesh(("data", "model"), (1, 2))
+    res, losses = {}, {}
+    t0 = time.perf_counter()
+    for kind in ("fwd", "ar", "voc"):
+        for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            r, model = tp_case(kind, dtype, dev, mesh)
+            losses[f"{kind}_{name}"] = r["loss"]
+            res[f"{kind}_{name}"] = r
+    seconds = time.perf_counter() - t0
+    if rank == 0:
+        torch.save(res, out / "tp.pt")
+    # B1 from the gathered float32 vocoder (the last case's model)
+    whole = tp_model("voc")
+    whole.load_state_dict(tp.gathered_state_dict(model))
+    whole.to(dev).eval()
+    mel = dp_mels(dev)[0]
+    wts = whole.sample_weights()
+    torch.cuda.synchronize()
+    zero_launches()
+    wav = generate(whole, mel, target=TP_FOLD[0], overlap=TP_FOLD[1],
+                   seed=TP_SEED, weights=wts)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    return {"losses": losses, "seconds": seconds, "launches": launches,
+            "voc_state": ({k: v.cpu() for k, v in whole.state_dict().items()}
+                          if rank == 0 else None),
+            "b1": {"wav_len": wav.numel(),
+                   "wav_finite": bool(torch.isfinite(wav).all())}}
+
+
+def tp_b1_check(cl, voc_state, failures):
+    """B1 on the gathered TP vocoder's weights (``voc_state``), one step at
+    a time against exact sums (``one_step_check``, MOL): its untrained
+    mixture makes a sample move by more than STEP_TOL with a bf16 rounding
+    of an activation, so the kernel is held as phase 12 holds the trained
+    export's, beside the plain version and the float32-activation
+    control, on conditioning of the range a trained upsample network gives
+    (features in [0, 1], aux of unit scale)."""
+    import torch
+    from etts_torch.ops.kernels import wavernn_cell as wcell
+    dev = torch.device("cuda")
+    model = tp_model("voc")
+    model.load_state_dict(voc_state)
+    wts = model.to(dev).sample_weights()
+    g = torch.Generator(dev).manual_seed(TP_SEED)
+    rows = 10
+    cond = torch.cat([torch.rand(200, rows, wts.feat, device=dev,
+                                 generator=g),
+                      torch.randn(200, rows, 4 * wts.adim, device=dev,
+                                  generator=g)], -1)
+    one_step_check(cl, "bf16 (the gathered TP vocoder)", wts,
+                   f32_activations(wts),
+                   lambda c_: wcell._bf16_step(c_, wts, torch.float64),
+                   None, cond, (rows,), STATE_TOL, SAMPLE_MARGIN_TRAINED,
+                   failures, n_steps=200, mode=model.mode,
+                   n_classes=model.n_classes)
+
+
+def sp_config() -> Path:
+    """Phase 9's config dir with ``sequence_parallel: 2``, written under
+    build/ (phase 16's SP driver)."""
+    import shutil
+    import yaml
+    src, dst = ROOT / "build" / "phase9_config", ROOT / "build" / "phase16_sp"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst)
+    cfg = yaml.safe_load((dst / "autoregressive_config.yaml").read_text())
+    cfg["sequence_parallel"] = 2
+    (dst / "autoregressive_config.yaml").write_text(yaml.safe_dump(cfg))
+    return dst
 
 
 def _start_ranks(n: int, port: int, out: Path):
@@ -4060,6 +4332,8 @@ def dp_phase(cl, voc, failures):
             "(gloo: NCCL refuses two ranks on one GPU), so no speed-up is "
             "claimed or measurable here")
     t0 = time.perf_counter()
+    shutil.rmtree(ConfigManager(sp_config(), "autoregressive",
+                                "phase16_sp2").base_dir, ignore_errors=True)
     procs, files = _start_ranks(2, _free_port(), root)
 
     # while the ranks start: one launch of each rank's rows, seeded as the
@@ -4113,6 +4387,11 @@ def dp_phase(cl, voc, failures):
         drop_n_heads=step_schedule(0, c["head_drop_schedule"]))
     l64 = float(met["loss"])
     del model, state, met
+    # the TP steps' references: each step in this process on the whole
+    # model, float64 (the bar's) and float32 (printed)
+    tp_ref = {f"{k}_{n}": tp_case(k, dt, dev)[0]
+              for k in ("fwd", "ar", "voc")
+              for n, dt in (("f64", torch.float64), ("f32", torch.float32))}
     t_parent = time.perf_counter() - t0
     rcs = _wait_ranks(procs, files, t0 + DP_TIMEOUT)
     t_gloo = time.perf_counter() - t0
@@ -4209,9 +4488,95 @@ def dp_phase(cl, voc, failures):
             f"card shared: each rank steps on half the batch, the two "
             f"queue on one card and all-reduce through the host), plain "
             f"{runs['plain'][1]:.2f}")
+    tp_phase_checks(cl, res, tp_ref, root, runs["plain"][0][0], l64,
+                    failures)
     return {"dp_vocode_rank0": res[0]["launches"],
             "dp_vocode_rank1": res[1]["launches"],
-            "dp_train_rank0": res[0]["train_launches"]}
+            "dp_train_rank0": res[0]["train_launches"],
+            "tp_vocode_rank0": res[0]["tp"]["launches"],
+            "tp_vocode_rank1": res[1]["tp"]["launches"],
+            "sp_train_rank0": res[0]["sp_launches"]}
+
+
+def tp_phase_checks(cl, res, tp_ref, root, plain_loss, l64, failures):
+    """Phase 16's tensor- and sequence-parallel checks, on the ranks'
+    results ``res`` and this process's references ``tp_ref``
+    (``tp_case``'s)."""
+    import math
+    import torch
+    from etts_torch.utils.config import ConfigManager
+    from etts_torch.utils.logging import read_scalars
+    got = torch.load(root / "tp.pt", weights_only=False)
+    say(cl, f"tensor parallelism, (data 1, model 2) on 2 gloo ranks "
+            f"sharing the card: the steps took {res[0]['tp']['seconds']:.1f}"
+            f" s on rank 0 (float64 and float32, the shards gathered)")
+    for kind, label in (("fwd", "forward"), ("ar", "AR"),
+                        ("voc", "WaveRNN")):
+        want = tp_ref[f"{kind}_f64"]
+        worst, name, rel = tp_held(got[f"{kind}_f64"], want)
+        _, _, rel32 = tp_held(got[f"{kind}_f32"], want)
+        _, _, ctl32 = tp_held(tp_ref[f"{kind}_f32"], want)
+        same = (res[0]["tp"]["losses"][f"{kind}_f64"]
+                == res[1]["tp"]["losses"][f"{kind}_f64"])
+        loss_rel = abs(got[f"{kind}_f64"]["loss"] - want["loss"]) / abs(
+            want["loss"])
+        ok = (worst <= 1.0 and same and loss_rel <= TP_GRAD_TOL
+              and math.isfinite(want["loss"]))
+        loss = got[f"{kind}_f64"]["loss"]
+        say(cl, f"TP {label} step, float64: loss {loss:.10f} against one "
+                f"process's {want['loss']:.10f} (relative "
+                f"{loss_rel:.2e}); {len(want)} tensors, the worst at "
+                f"{worst:.3f} of its bar ({name}); the gradients "
+                f"{rel:.2e} from one process's (norm-relative); both "
+                f"ranks' loss equal: {same}. float32 (printed): the "
+                f"gradients {rel32:.2e} (TP) and {ctl32:.2e} (one process) "
+                f"from the float64 step")
+        if not ok:
+            failures.append(f"phase 16: TP {label} step")
+    for r in (0, 1):
+        b1 = res[r]["tp"]["b1"]
+        n = res[r]["tp"]["launches"]["wavernn_sample_loop"]
+        say(cl, f"B1 from the gathered TP vocoder, rank {r}: generate "
+                f"launched it {n} time(s), {b1['wav_len']} samples, finite "
+                f"{b1['wav_finite']}")
+        if not (n == 1 and b1["wav_finite"]):
+            failures.append(f"phase 16: B1 from the TP vocoder, rank {r}")
+    tp_b1_check(cl, res[0]["tp"]["voc_state"], failures)
+    cm = ConfigManager(ROOT / "build" / "phase16_sp", "autoregressive",
+                       "phase16_sp2")
+    losses = read_scalars(cm.log_dir)["train/loss"]
+    d = abs(losses[0] - plain_loss) / abs(plain_loss)
+    printed = [[ln for ln in res[r]["sp_out"].splitlines()
+                if ln.startswith(("session ", "step ", "Done."))]
+               for r in (0, 1)]
+    layout = any("sequence parallelism: data 1 x seq 2" in ln
+                 for ln in printed[0])
+    say(cl, f"train_autoregressive, sequence_parallel: 2 on 2 gloo ranks: "
+            f"{res[0]['sp_seconds']:.1f} s; losses "
+            f"{dict(sorted(losses.items()))}; first step's loss relative "
+            f"{d:.2e} from the plain driver's (tol {DP_LOSS_TOL}), "
+            f"{abs(losses[0] - l64) / abs(l64):.2e} from float64; the "
+            f"layout printed: {layout}; rank 1 printed nothing: "
+            f"{not printed[1]}")
+    if not (d <= DP_LOSS_TOL and layout and not printed[1]
+            and all(math.isfinite(v) for v in losses.values())):
+        failures.append("phase 16: train_autoregressive, sequence_parallel")
+
+
+def tp_rank_main(rank: int, world: int, port: int, out: Path) -> int:
+    """``chip_smoke.py --tp-rank R N PORT OUT``: rank R of N NCCL ranks, a
+    card each, the forward step of ``tp_case`` in float64 on a (data N /
+    2, model 2) mesh; rank 0 writes it to OUT/tp_nccl.pt."""
+    import torch
+    from etts_torch.parallel import init_multihost, local_device, make_mesh
+    init_multihost(f"127.0.0.1:{port}", world, rank, "nccl")
+    dev = local_device("cuda")
+    mesh = make_mesh(("data", "model"), (-1, 2), device_type="cuda")
+    res, _ = tp_case("fwd", torch.float64, dev, mesh)
+    if rank == 0:
+        torch.save(res, out / "tp_nccl.pt")
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 def nccl_cards_main() -> int:
@@ -4319,6 +4684,60 @@ def nccl_cards_main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
     if not (rel <= DP_LOSS_TOL and out.count("step 0: loss") == 1):
         failures.append("train_autoregressive under torchrun")
+
+    # tensor parallelism: the forward step on a (data n / 2, model 2) mesh
+    # of NCCL ranks against the whole model on one card, float64
+    t0 = time.perf_counter()
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), TP_RANK, str(r),
+         str(n), port, str(root)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(env, LOCAL_RANK=str(r))) for r in range(n)]
+    want, _ = tp_case("fwd", torch.float64, torch.device("cuda", 0))
+    ranks_ok = True
+    for r, p in enumerate(procs):
+        try:
+            text = p.communicate(timeout=DP_TIMEOUT)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text = p.communicate()[0] + "\n(stopped at the limit)"
+        if p.returncode != 0:
+            ranks_ok = False
+            failures.append(f"TP rank {r}: {text[-2000:]}")
+    if ranks_ok:
+        got = torch.load(root / "tp_nccl.pt", weights_only=False)
+        worst, name, relw = tp_held(got, want)
+        say(cl, f"TP forward step, (data {n // 2}, model 2) on {n} NCCL "
+                f"ranks, float64: loss {got['loss']:.10f} against one "
+                f"card's {want['loss']:.10f}; the worst tensor at "
+                f"{worst:.3f} of its bar ({name}); the gradients "
+                f"{relw:.2e} from one card's (norm-relative); "
+                f"{time.perf_counter() - t0:.1f} s")
+        if worst > 1.0:
+            failures.append("TP forward step on NCCL ranks")
+    (root / "tp_nccl.pt").unlink(missing_ok=True)
+
+    # sequence parallelism: the driver with sequence_parallel: 2 under
+    # torchrun on n ranks (data n / 2 x seq 2)
+    t0 = time.perf_counter()
+    sp_dir = sp_config()
+    out = run([[sys.executable, "-m", "torch.distributed.run",
+                "--nproc_per_node", str(n), "--master_port",
+                str(_free_port()), "-m", "etts_torch.train_autoregressive",
+                "--config", str(sp_dir), "--max_steps", str(DP_STEPS),
+                "--session_name", "cards_sp", "--multihost"]])[0]
+    sp = read_scalars(ConfigManager(sp_dir, "autoregressive",
+                                    "cards_sp").log_dir)["train/loss"]
+    rel = abs(sp[0] - first["cards_plain"]) / abs(first["cards_plain"])
+    layout = f"sequence parallelism: data {n // 2} x seq 2" in out
+    say(cl, f"train_autoregressive, sequence_parallel: 2 under torchrun on "
+            f"{n} NCCL ranks: losses {dict(sorted(sp.items()))}; first "
+            f"step's loss relative {rel:.2e} from the plain driver's (tol "
+            f"{DP_LOSS_TOL}); the layout printed: {layout}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    if not (rel <= DP_LOSS_TOL and layout):
+        failures.append("train_autoregressive, sequence_parallel, NCCL")
     if failures:
         print(f"failed: {failures}", file=sys.stderr)
         return 1
@@ -4346,6 +4765,9 @@ def main() -> int:
                             Path(sys.argv[4]))
     if sys.argv[1:2] == [NCCL_CARDS]:
         return nccl_cards_main()
+    if sys.argv[1:2] == [TP_RANK]:
+        return tp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                            int(sys.argv[4]), Path(sys.argv[5]))
 
     # ---- 1. card, build ----
     cl = card()

@@ -136,5 +136,11 @@ class MelSpectrogram:
             mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax))
 
     def __call__(self, wav: torch.Tensor) -> torch.Tensor:
+        """The filterbank's product summed in float64 and rounded once to
+        float32: a float32 product sums its 1 + n_fft // 2 terms in an
+        order of the device's and the host's library (cuBLAS, or MKL on
+        the host's instruction set), which moved a store's log-mels by
+        1.24e-5 card against CPU (``chip_smoke.py`` phase 13's bar 1e-5)."""
         mag = stft(wav, self.n_fft, self.hop_length, self.win_length).abs()
-        return self.mel_basis.to(wav.device) @ mag
+        return (self.mel_basis.to(wav.device, torch.float64)
+                @ mag.double()).float()

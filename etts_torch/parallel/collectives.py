@@ -24,6 +24,15 @@ batch padded once, before it is sliced. Outside a data-parallel step (no
 process group, a group of one, or code that is not a train step) every
 function here is the plain single-process one.
 
+A step over a mesh (``sharded_step(step, mesh)``, ``step_layout``) takes
+its rows from the mesh's ``data`` axis. Under tensor parallelism
+(("data", "model")) the model axis computes one loss, so the averages run
+over the data axis. Under sequence parallelism (("data", "seq"), the AR
+step) each seq rank holds its frames of the rows (``SeqShard``) and its
+share of the loss, so the averages run over every rank; the decoder runs
+in a ``time_region``, where a 3-d draw is the whole sequence's and the
+rank keeps its frames, and what mixes time gathers the sequence.
+
 The collectives are ``all_reduce`` only (a gather sums zero-padded rows):
 gloo all-reduces CUDA tensors as well as CPU ones, so two ranks may share
 one card on gloo, which NCCL refuses.

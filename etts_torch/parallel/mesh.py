@@ -229,9 +229,12 @@ def _tensors(obj):
     return []
 
 
-def local_batch_slice(global_batch_size: int) -> slice:
-    """This rank's slice of a global batch: equal parts in rank order."""
-    rank, world = rank_world()
+def local_batch_slice(global_batch_size: int, rank: Optional[int] = None,
+                      world: Optional[int] = None) -> slice:
+    """This rank's slice of a global batch (``rank`` of ``world`` parts,
+    the process group's where not given): equal parts in rank order."""
+    if rank is None:
+        rank, world = rank_world()
     if global_batch_size % world:
         raise ValueError(f"a global batch of {global_batch_size} rows does "
                          f"not split over {world} ranks")
@@ -251,14 +254,8 @@ def local_shard(batch, mesh=None):
         rank, world = rank_world()
     if world == 1:
         return batch
-
-    def rows(x):
-        if len(x) % world:
-            raise ValueError(f"a global batch of {len(x)} rows does not "
-                             f"split over {world} ranks")
-        per = len(x) // world
-        return x[per * rank:per * (rank + 1)]
-    return _tree_map(rows, batch)
+    return _tree_map(lambda x: x[local_batch_slice(len(x), rank, world)],
+                     batch)
 
 
 def _tree_map(fn, tree):

@@ -160,9 +160,10 @@ def main(argv=None):
     seq_n, world = int(config.get("sequence_parallel", 1)), rank_world()[1]
     mesh = None
     if seq_n > 1 and world >= seq_n:
+        nccl = (torch.distributed.is_initialized()
+                and torch.distributed.get_backend() == "nccl")
         mesh = make_mesh(("data", "seq"), (-1, seq_n),
-                         device_type=("cuda" if torch.distributed
-                                      .get_backend() == "nccl" else "cpu"))
+                         device_type="cuda" if nccl else "cpu")
         layout = (f"sequence parallelism: data {world // seq_n} x seq "
                   f"{seq_n}")
     elif world > 1:

@@ -152,17 +152,32 @@ def test_generate_batch_sharded_single_process_is_generate_batch():
         assert torch.equal(a, b)
 
 
-def test_sequence_parallel_not_ported(tmp_path, monkeypatch):
-    """``sequence_parallel: N`` with N ranks or more raises (context
-    parallelism is not ported); with fewer the driver trains data-parallel
-    (here: one rank seen as two, so that only the rule reads it)."""
+def test_sequence_parallel_not_ported(tmp_path, monkeypatch, capsys):
+    """``sequence_parallel: N`` with N ranks or more builds the ("data",
+    "seq") mesh (context parallelism, ported since slice 20; the steps
+    themselves are tests/test_torch_tp.py's); with fewer the driver trains
+    data-parallel and says so (here: one rank seen as two, so that only
+    the rule reads it)."""
     import etts_torch.train_autoregressive as tar
     from torch_parity import tiny_corpus
     argv = ["--config", str(tmp_path), "--device", "cpu", "--max_steps",
             "1"]
     monkeypatch.setattr(tar, "rank_world", lambda group=None: (0, 2))
+    asked = []
+
+    class Built(Exception):
+        pass
+
+    def make_mesh(*args, **kwargs):
+        asked.append(args)
+        raise Built
+    monkeypatch.setattr(tar, "make_mesh", make_mesh)
     tiny_corpus(tmp_path, sequence_parallel=2)
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+    with pytest.raises(Built):
         tar.main(argv)
+    assert asked == [(("data", "seq"), (-1, 2))]
     tiny_corpus(tmp_path, sequence_parallel=4)
     tar.main(argv)
+    assert asked == [(("data", "seq"), (-1, 2))]
+    assert ("data parallelism over 2 ranks (sequence_parallel: 4 needs 4 "
+            "ranks; 2 here)") in capsys.readouterr().out
